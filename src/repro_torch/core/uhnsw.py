@@ -1,0 +1,407 @@
+"""U-HNSW (paper Algorithm 1): ANNS under universal Lp metrics.
+
+Counterpart of `repro.core.uhnsw`. Query processing for (q, p):
+  1. Candidate generation: G1 (L1) if p <= 1.4 else G2 (L2), beam search
+     for the top-t candidates under the base metric (t = 300 by default).
+  2. Verification: re-rank the candidates under exact Lp, popping batches of
+     kappa and stopping a query once its running top-K is stable:
+     |R_new ∩ R| / K >= tau (tau = 0.92 by default).
+
+The verification loop steps every query together: a query that has
+converged freezes its results and N_p, and the loop ends when all have
+(or the candidates run out). With `abandon` (the default) each kappa batch
+runs the early-abandoning kernel against the running k-th best; the first k
+candidates are scored by the gather kernel. For p equal to the base metric
+the beam's order is already exact and verification is skipped.
+
+Not ported yet (ROADMAP.md): the compressed int8 band (`compressed_band`),
+the energy-ordered scan (`energy_perm`), the sequential (`incremental`) and
+the kernel-backed NN-Descent (`bulk`) builders.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import metrics
+from repro_torch.core.build import HNSWGraph, build_hnsw_bulk
+from repro_torch.core.hnsw import GraphArrays, knn_search
+from repro_torch.core.lp_ops import is_static_p, lp_root
+from repro_torch.kernels.ops import lp_gather_abandon, lp_gather_distance
+
+
+@dataclass(frozen=True)
+class UHNSWParams:
+    """Query-time parameters (paper Algorithm 1 + §3.2).
+
+    t: candidate set size fed to verification; tau: early-termination
+    threshold (target recall + 0.02); kappa: verification batch size (None
+    -> K // 2); cutoff: G1 serves p <= cutoff, G2 the rest, per query row;
+    ef: beam width (None -> 2t); max_hops: cap on loop trips per layer;
+    expand_width: W-way multi-expansion of the level-0 beam; abandon: the
+    early-abandoning verification (exact: same ids and distances as the
+    full scan up to summation order); abandon_block_d: its dimension-block
+    width (None -> `kernels.ops.pick_abandon_block_d`); compressed_band,
+    energy_perm: not ported yet, must stay False.
+    """
+
+    t: int = 300
+    tau: float = 0.92
+    kappa: int | None = None
+    cutoff: float = 1.4
+    ef: int | None = None
+    max_hops: int = 4096
+    expand_width: int = 1
+    abandon: bool = True
+    abandon_block_d: int | None = None
+    compressed_band: bool = False
+    energy_perm: bool = False
+
+
+class CandidateSet(NamedTuple):
+    """Output of the candidate-generation stage (all on the device)."""
+
+    ids: torch.Tensor         # (B, t) int32, ascending by base-metric distance
+    base_dists: torch.Tensor  # (B, t) root-free base-metric power sums
+    n_b: torch.Tensor         # (B,) base-metric evaluation counts (Eq. 1)
+    hops: torch.Tensor        # (B,) level-0 loop trips
+    base_p: float             # base metric of the candidates (1.0 = G1, 2.0 = G2)
+
+
+class SearchStats(NamedTuple):
+    n_b: torch.Tensor          # (B,) base-metric Q2D evaluation counts
+    n_p: torch.Tensor          # (B,) Lp Q2D evaluation counts
+    iterations: int            # verification loop iterations executed
+    base_p: float | np.ndarray  # scalar for a one-p batch, (B,) for mixed p
+    hops: torch.Tensor | int = 0
+    n_dim_frac: torch.Tensor | float = 1.0  # (B,) share of the verification
+    # dimension-work actually scanned (1.0 on the full-dimension paths),
+    # counted over rows that had not converged, like N_p
+
+
+def _sort_by_dist(d: torch.Tensor, ids: torch.Tensor):
+    sd, order = torch.sort(d, dim=1, stable=True)
+    return sd, ids.gather(1, order)
+
+
+def _verify_impl(Q, cand_ids, X, p, k: int, kappa: int, tau: float):
+    """Full-dimension verification (abandon=False)."""
+    B, t = cand_ids.shape
+    n_batches = max((t - k) // kappa, 0)
+    p_col = p if is_static_p(p) else p[:, None]
+    first = cand_ids[:, :k]
+    r_dist, r_ids = _sort_by_dist(lp_gather_distance(Q, first, X, p), first)
+    n_p = torch.full((B,), k, dtype=torch.int32, device=Q.device)
+    done = torch.zeros(B, dtype=torch.bool, device=Q.device)
+    i = 0
+    while i < n_batches and not bool(done.all()):
+        batch = cand_ids[:, k + i * kappa:k + (i + 1) * kappa]
+        bd = lp_gather_distance(Q, batch, X, p)
+        new_dist, new_ids = _sort_by_dist(torch.cat([r_dist, bd], 1),
+                                          torch.cat([r_ids, batch], 1))
+        r_ids, r_dist, done, n_p = _converge(r_ids, r_dist, new_ids[:, :k],
+                                             new_dist[:, :k], done, n_p, k, kappa, tau)
+        i += 1
+    return r_ids, lp_root(r_dist, p_col), n_p, i
+
+
+def _converge(r_ids, r_dist, new_ids, new_dist, done, n_p, k, kappa, tau):
+    """One convergence step: rows not yet done take the merged top-k and
+    stop once |R_new ∩ R| / K >= tau; done rows keep everything."""
+    inter = (new_ids[:, :, None] == r_ids[:, None, :]).any(-1).sum(-1)
+    newly_done = inter.to(torch.float32) / k >= tau
+    keep = done[:, None]
+    r_ids = torch.where(keep, r_ids, new_ids)
+    r_dist = torch.where(keep, r_dist, new_dist)
+    n_p = n_p + torch.where(done, 0, kappa).to(torch.int32)
+    return r_ids, r_dist, done | newly_done, n_p
+
+
+def _verify_abandon_impl(Q, cand_ids, cand_base, X, p, k: int, kappa: int, tau: float,
+                         base_p: float, block_d: int | None):
+    """Early-abandoning verification (DESIGN.md §8).
+
+    Each kappa batch passes the running k-th best power sum to the
+    abandoning kernel as the row's threshold (-inf for converged rows, which
+    then load nothing); abandoned candidates come back +inf, so a stable
+    sort of (R, batch) keeps exactly what the full scan keeps. Also returns
+    n_dim_frac, the scanned share of the offered dimension-work.
+    """
+    B, t = cand_ids.shape
+    d = Q.shape[1]
+    n_batches = max((t - k) // kappa, 0)
+    p_col = p if is_static_p(p) else p[:, None]
+    first = cand_ids[:, :k]
+    r_dist, r_ids = _sort_by_dist(lp_gather_distance(Q, first, X, p), first)
+    n_p = torch.full((B,), k, dtype=torch.int32, device=Q.device)
+    ones = torch.ones(B, device=Q.device)
+    if n_batches == 0:
+        return r_ids, lp_root(r_dist, p_col), n_p, 0, ones
+    dim_scan = ones * (k * d)
+    done = torch.zeros(B, dtype=torch.bool, device=Q.device)
+    i = 0
+    while i < n_batches and not bool(done.all()):
+        sl = slice(k + i * kappa, k + (i + 1) * kappa)
+        batch = cand_ids[:, sl]
+        thresh = torch.where(done, -torch.inf, r_dist[:, k - 1])
+        bd, nd = lp_gather_abandon(Q, batch, X, thresh, cand_base[:, sl], p,
+                                   base_p=base_p, block_d=block_d)
+        new_dist, new_ids = _sort_by_dist(torch.cat([r_dist, bd], 1),
+                                          torch.cat([r_ids, batch], 1))
+        dim_scan = dim_scan + torch.where(done, 0.0, nd.sum(1).to(torch.float32))
+        r_ids, r_dist, done, n_p = _converge(r_ids, r_dist, new_ids[:, :k],
+                                             new_dist[:, :k], done, n_p, k, kappa, tau)
+        i += 1
+    # n_p accrues kappa under the same mask as dim_scan: offered work = n_p * d
+    return (r_ids, lp_root(r_dist, p_col), n_p, i,
+            dim_scan / (n_p.to(torch.float32) * d))
+
+
+def verify_candidates(Q, cand_ids, X, p, k: int, kappa: int, tau: float, *,
+                      cand_base=None, base_p: float = 1.0, abandon: bool = True,
+                      block_d: int | None = None):
+    """Early-terminated exact-Lp re-ranking (Algorithm 1 lines 7-11).
+
+    Returns (ids (B, k) int32, rooted dists (B, k) f32, n_p (B,) int32,
+    iterations, n_dim_frac (B,) f32). p is a Python float, or a (B,) tensor
+    re-ranking row i under p[i] (each row the same as the scalar call at its
+    p). cand_base (the beam's base-metric power sums, metric base_p) enables
+    the entry/suffix bounds of the abandoning scan; None disables them.
+    Candidate ids outside [0, n) are padding and score +inf.
+    """
+    if not is_static_p(p):
+        p = torch.broadcast_to(metrics.as_p_vec(p, Q.device), (Q.shape[0],))
+    else:
+        p = float(p)
+    if abandon:
+        if cand_base is None:
+            cand_base = torch.zeros(cand_ids.shape, device=Q.device)
+        return _verify_abandon_impl(Q, cand_ids, cand_base, X, p, k, kappa, tau,
+                                    float(base_p), block_d)
+    ids, dists, n_p, iters = _verify_impl(Q, cand_ids, X, p, k, kappa, tau)
+    return ids, dists, n_p, iters, torch.ones(Q.shape[0], device=Q.device)
+
+
+def mask_base_rows(cand_ids, cand_dists, ids, dists, n_p, p_vec, base_p, k: int,
+                   n_dim_frac=None):
+    """Per-row base-metric skip inside a mixed batch: rows whose p equals the
+    base metric take the beam's own order (the values the scalar skip path
+    gives) and report n_p = 0 and, when given, n_dim_frac = 1."""
+    p = metrics.as_p_vec(p_vec, ids.device)
+    is_base = p == base_p
+    ids = torch.where(is_base[:, None], cand_ids[:, :k], ids)
+    dists = torch.where(is_base[:, None], lp_root(cand_dists[:, :k], p[:, None]), dists)
+    n_p = torch.where(is_base, 0, n_p).to(torch.int32)
+    if n_dim_frac is None:
+        return ids, dists, n_p
+    return ids, dists, n_p, torch.where(is_base, 1.0, n_dim_frac)
+
+
+def two_way_mixed_search(Q, p, k: int, cutoff: float, search_base_vec):
+    """Mixed-p search: partition the batch two ways (G1 rows / G2 rows),
+    run one per-row-p search on each side, scatter back to request order.
+
+    search_base_vec(Q_sub (B', d), p_sub (B',) numpy f32, k, base_p) returns
+    (ids, dists, n_p, iters, n_b, hops, n_dim_frac) for one side. Returns
+    (ids (B, k), dists (B, k), SearchStats) with stats.base_p the (B,) host
+    array of base metrics.
+    """
+    b = Q.shape[0]
+    if torch.is_tensor(p):
+        p = p.detach().cpu().numpy()
+    p_arr = np.asarray(p, dtype=np.float32).reshape(-1)
+    if p_arr.size == 1:
+        p_arr = np.full(b, p_arr[0], dtype=np.float32)
+    if p_arr.shape[0] != b:
+        raise ValueError(f"p has {p_arr.shape[0]} rows for a batch of {b}")
+    base = np.asarray(metrics.base_metric_for(p_arr, cutoff))
+    dev = Q.device
+    if b == 0:
+        zi = torch.zeros((0,), dtype=torch.int32, device=dev)
+        return (torch.zeros((0, k), dtype=torch.int32, device=dev),
+                torch.zeros((0, k), device=dev),
+                SearchStats(n_b=zi, n_p=zi, iterations=0, base_p=base, hops=zi,
+                            n_dim_frac=torch.zeros((0,), device=dev)))
+    sels, parts, iters = [], [], 0
+    for base_p in (1.0, 2.0):
+        sel = np.flatnonzero(base == base_p)
+        if sel.size == 0:
+            continue
+        s_ids, s_dists, s_np, s_it, s_nb, s_hops, s_frac = search_base_vec(
+            Q[torch.from_numpy(sel).to(dev)], p_arr[sel], k, base_p)
+        sels.append(sel)
+        parts.append((s_ids, s_dists, s_np, s_nb, s_hops, s_frac))
+        iters = max(iters, int(s_it))
+    if len(parts) == 1:
+        ids, dists, n_p, n_b, hops, frac = parts[0]
+    else:
+        inv = np.empty(b, np.int64)
+        inv[np.concatenate(sels)] = np.arange(b)
+        inv = torch.from_numpy(inv).to(dev)
+        ids, dists, n_p, n_b, hops, frac = (torch.cat(xs, 0)[inv] for xs in zip(*parts))
+    return ids, dists, SearchStats(n_b=n_b, n_p=n_p, iterations=iters, base_p=base,
+                                   hops=hops, n_dim_frac=frac)
+
+
+def modeled_query_cost(stats: SearchStats, p, d: int) -> dict:
+    """T_query = N_b * T_b + N_p * (n_dim_frac * T_p) (paper Eq. 1 with the
+    adaptive-T_p correction) under the op-cost model of `core.metrics`.
+    p and stats.base_p may be scalars or (B,) arrays (batch means)."""
+    if torch.is_tensor(p):
+        p = p.detach().cpu().numpy()
+    t_b = float(np.mean([metrics.lp_distance_cost_model(float(bp), d)
+                         for bp in np.atleast_1d(stats.base_p)]))
+    t_p = float(np.mean([metrics.lp_distance_cost_model(float(pp), d)
+                         for pp in np.atleast_1d(np.asarray(p))]))
+    n_b = float(torch.as_tensor(stats.n_b, dtype=torch.float64).mean())
+    n_p_row = torch.as_tensor(stats.n_p, dtype=torch.float64).cpu().numpy()
+    n_p = float(n_p_row.mean())
+    frac_row = np.broadcast_to(
+        torch.as_tensor(stats.n_dim_frac, dtype=torch.float64).cpu().numpy(), n_p_row.shape)
+    # N_p-weighted per row: rows that skipped verification must not dilute it
+    weighted = float(np.mean(n_p_row * frac_row))
+    frac = weighted / n_p if n_p > 0 else 1.0
+    return {"N_b": n_b, "N_p": n_p, "T_b": t_b, "T_p": t_p, "n_dim_frac": frac,
+            "total": n_b * t_b + weighted * t_p}
+
+
+class UHNSW:
+    """The paper's index: two HNSW graphs, G1 under L1 and G2 under L2.
+
+    `search(Q, p, k)`: batched ANNS-U-Lp (Algorithm 1). Q (B, d); p a Python
+    float (one metric for the batch) or (B,) array (one per row). Returns
+    (ids (B, k) int32, rooted dists (B, k) f32, SearchStats). Everything
+    runs on the device of the graphs' data. Supported p range is [0.5, 2].
+    """
+
+    def __init__(self, g1: HNSWGraph, g2: HNSWGraph, params: UHNSWParams | None = None):
+        if g1.metric_p != 1.0 or g2.metric_p != 2.0:
+            raise ValueError("UHNSW needs G1 under L1 and G2 under L2")
+        self.g1, self.g2 = g1, g2
+        self.params = params or UHNSWParams()
+        self.X = g1.data
+        self.arrays1 = GraphArrays.from_graph(g1)
+        self.arrays2 = GraphArrays.from_graph(g2)
+
+    @property
+    def dim(self) -> int:
+        return int(self.X.shape[1])
+
+    @classmethod
+    def build(cls, data, m: int = 32, seed: int = 0, params: UHNSWParams | None = None,
+              progress_every: int = 0, method: str = "bulk_host", device=None) -> "UHNSW":
+        """Builds G1 (seed) and G2 (seed + 1) and wraps them.
+
+        method "bulk_host" is the bulk builder (`core.build.build_hnsw_bulk`),
+        its dense steps on `device` (None: the tensor's device, or "cuda"
+        for a numpy array). "incremental" and "bulk" are not ported yet.
+        """
+        if method in ("incremental", "bulk"):
+            raise NotImplementedError(
+                f"build method {method!r} is not ported yet (ROADMAP.md queue 1: "
+                "'incremental' is item 2, 'bulk' is item 5); use 'bulk_host'")
+        if method != "bulk_host":
+            raise ValueError(f"unknown build method {method!r}")
+        g1 = build_hnsw_bulk(data, 1.0, m=m, seed=seed, progress_every=progress_every,
+                             device=device)
+        g2 = build_hnsw_bulk(g1.data, 2.0, m=m, seed=seed + 1,
+                             progress_every=progress_every)
+        return cls(g1, g2, params)
+
+    def index_size_bytes(self, p_range_max: float = 2.0) -> int:
+        """Index size without the data; G1 alone when only p <= 1 is served."""
+        if p_range_max <= 1.0:
+            return self.g1.index_size_bytes()
+        return self.g1.index_size_bytes() + self.g2.index_size_bytes()
+
+    def base_graph_for(self, p: float) -> tuple[GraphArrays, float]:
+        """Scalar-p base-graph pick (paper Alg. 1 line 3): G1 iff p <= cutoff."""
+        base = metrics.base_metric_for(p, self.params.cutoff)
+        return (self.arrays1, 1.0) if base == 1.0 else (self.arrays2, 2.0)
+
+    def _check_ported(self) -> None:
+        if self.params.compressed_band:
+            raise NotImplementedError(
+                "compressed_band is not ported yet (ROADMAP.md queue 1 item 7)")
+        if self.params.energy_perm:
+            raise NotImplementedError(
+                "energy_perm is not ported yet (ROADMAP.md queue 1 item 7)")
+
+    def _queries(self, Q) -> torch.Tensor:
+        return torch.as_tensor(Q, dtype=torch.float32, device=self.X.device)
+
+    def search(self, Q, p, k: int):
+        """Batched ANNS-U-Lp query (Algorithm 1); see the class docstring.
+
+        A mixed-p batch is partitioned two ways by base graph and each side
+        runs one per-row-p search; each row's result equals the scalar call
+        at its p.
+        """
+        self._check_ported()
+        Q = self._queries(Q)
+        if is_static_p(p):
+            _, base_p = self.base_graph_for(float(p))
+            cands = self.search_stage_candidates(Q, base_p)
+            return self.search_stage_finish(Q, cands, float(p), k)
+        return two_way_mixed_search(Q, p, k, self.params.cutoff, self._search_base_vec)
+
+    def search_stage_candidates(self, Q, base_p: float) -> CandidateSet:
+        """Stage 1 of 2: base-metric candidate generation (Alg. 1 lines 1-6)."""
+        prm = self.params
+        Q = self._queries(Q)
+        arrays = self.arrays1 if base_p == 1.0 else self.arrays2
+        ef = max(prm.ef or 2 * prm.t, prm.t)
+        ids, dists, n_b, hops = knn_search(arrays, self.X, Q, ef=ef, t=prm.t,
+                                           max_hops=prm.max_hops,
+                                           expand_width=min(prm.expand_width, ef))
+        return CandidateSet(ids=ids, base_dists=dists, n_b=n_b, hops=hops, base_p=base_p)
+
+    def search_stage_finish(self, Q, cands: CandidateSet, p, k: int):
+        """Stage 2 of 2: verification, or the skip when p is the base metric.
+
+        p: a float (the skip path when it equals cands.base_p), or a (B,)
+        array with the per-row skip. Returns (ids, dists, SearchStats).
+        """
+        self._check_ported()
+        prm = self.params
+        Q = self._queries(Q)
+        base_p = cands.base_p
+        if is_static_p(p) and float(p) == base_p:
+            ones = torch.ones(cands.n_b.shape, device=Q.device)
+            return cands.ids[:, :k], lp_root(cands.base_dists[:, :k], float(p)), SearchStats(
+                n_b=cands.n_b, n_p=torch.zeros_like(cands.n_b), iterations=0,
+                base_p=base_p, hops=cands.hops, n_dim_frac=ones)
+        kappa = prm.kappa or max(k // 2, 1)
+        if not is_static_p(p):
+            p = metrics.as_p_vec(p, Q.device)
+        ids, dists, n_p, iters, frac = verify_candidates(
+            Q, cands.ids, self.X, p, k, kappa, prm.tau, cand_base=cands.base_dists,
+            base_p=base_p, abandon=prm.abandon, block_d=prm.abandon_block_d)
+        if not is_static_p(p):
+            ids, dists, n_p, frac = mask_base_rows(cands.ids, cands.base_dists, ids, dists,
+                                                   n_p, p, base_p, k, n_dim_frac=frac)
+        return ids, dists, SearchStats(n_b=cands.n_b, n_p=n_p, iterations=iters,
+                                       base_p=base_p, hops=cands.hops, n_dim_frac=frac)
+
+    def _search_base_vec(self, Q, p_vec, k: int, base_p: float):
+        cands = self.search_stage_candidates(Q, base_p)
+        ids, dists, st = self.search_stage_finish(Q, cands, p_vec, k)
+        return ids, dists, st.n_p, st.iterations, st.n_b, st.hops, st.n_dim_frac
+
+    def modeled_query_cost(self, stats: SearchStats, p, d: int) -> dict:
+        return modeled_query_cost(stats, p, d)
+
+
+def recall(pred_ids, true_ids) -> float:
+    """Top-K recall |S* ∩ S| / K over the batch (paper §4.1.2); negative ids
+    are padding and count on neither side."""
+    pred = pred_ids.cpu().numpy() if torch.is_tensor(pred_ids) else np.asarray(pred_ids)
+    true = true_ids.cpu().numpy() if torch.is_tensor(true_ids) else np.asarray(true_ids)
+    valid_t = true >= 0
+    eq = (true[:, :, None] == pred[:, None, :]) & valid_t[:, :, None] \
+        & (pred >= 0)[:, None, :]
+    return int(eq.any(-1).sum()) / max(int(valid_t.sum()), 1)

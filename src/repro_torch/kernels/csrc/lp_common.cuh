@@ -1,0 +1,42 @@
+// Per-p op sequences shared by the Lp kernels: the CUDA form of the table in
+// src/repro_torch/core/lp_ops.py (and src/repro/core/lp_ops.py). Each row
+// picks its family from its own p, so a row gives the same bits whether the
+// caller passed p as one float or as a per-row vector.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace lp {
+
+constexpr float kEps = 1e-30f;       // guard for log(0), lp_ops.EPS
+constexpr float kDeflate = 0.999f;   // 1 - lp_ops.BOUND_SLACK
+constexpr int kWarps = 8;            // warps (candidates in flight) per block
+
+enum Family { kL1 = 0, kL2 = 1, kSqrt = 2, kL15 = 3, kGeneral = 4 };
+
+__device__ __forceinline__ int family_of(float p) {
+  if (p == 1.0f) return kL1;
+  if (p == 2.0f) return kL2;
+  if (p == 0.5f) return kSqrt;
+  if (p == 1.5f) return kL15;
+  return kGeneral;
+}
+
+// a^p for a >= 0, cheapest sequence for the family (lp_ops.pow_from_abs).
+template <int F>
+__device__ __forceinline__ float pow_from_abs(float a, float p) {
+  if (F == kL1) return a;
+  if (F == kL2) return a * a;
+  if (F == kSqrt) return sqrtf(a);
+  if (F == kL15) return a * sqrtf(a);
+  return a == 0.0f ? 0.0f : expf(p * logf(fmaxf(a, kEps)));
+}
+
+// Butterfly sum: every lane ends with the same bits (IEEE add commutes).
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+}  // namespace lp

@@ -1,0 +1,132 @@
+"""Wrappers of the hand-written CUDA Lp kernels.
+
+`gather_lp` and `gather_lp_abandon` take the place of the Pallas kernels
+`gather_lp_kernel_call` and `gather_lp_abandon_kernel_call` of
+`repro.kernels.lp_distance`. For CUDA tensors each launches its kernel
+(built at first use by `kernels._build`) on the current stream, or raises;
+for CPU tensors each runs its plain version from `kernels.ref`. Each keeps
+a count of its kernel launches in its `launches` attribute, so that a run
+can show that the query path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.lp_ops import is_static_p
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import gather_lp_abandon_ref, gather_lp_ref
+
+
+def reset_launch_counts() -> None:
+    """Sets every kernel's launch count to 0."""
+    gather_lp.launches = 0
+    gather_lp_abandon.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {"gather_lp": gather_lp.launches,
+            "gather_lp_abandon": gather_lp_abandon.launches}
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}: the kernels run on CUDA")
+    return False
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"{name}: expected {dtype} {shape} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _p_rows(p, b: int, device) -> torch.Tensor:
+    """p as the kernels take it: a contiguous (B,) float32 tensor."""
+    if is_static_p(p):
+        return torch.full((b,), float(p), dtype=torch.float32, device=device)
+    p = torch.as_tensor(p, dtype=torch.float32, device=device).reshape(-1)
+    return p.expand(b).contiguous() if p.numel() == 1 else p.contiguous()
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
+
+
+def gather_lp(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor, p) -> torch.Tensor:
+    """Root-free sum_j |q[b, j] - x[ids[b, c], j]|^p -> (B, C) float32.
+
+    q (B, d) f32, ids (B, C) int, x (n, d) f32, p a float or (B,) tensor.
+    Ids outside [0, n) are padding and score +inf.
+    """
+    if _on_cpu(q):
+        return gather_lp_ref(q, ids, x, p)
+    b, d = q.shape
+    c = ids.shape[1]
+    n = x.shape[0]
+    ids = ids.to(torch.int32).contiguous()
+    q = q.contiguous()
+    x = x.contiguous()
+    _check("q", q, torch.float32, (b, d), x.device)
+    _check("x", x, torch.float32, (n, d), q.device)
+    _check("ids", ids, torch.int32, (b, c), q.device)
+    pv = _p_rows(p, b, q.device)
+    out = torch.empty((b, c), dtype=torch.float32, device=q.device)
+    err = _build.launcher("gather_lp")(
+        ids.data_ptr(), q.data_ptr(), x.data_ptr(), pv.data_ptr(), out.data_ptr(),
+        b, c, n, d, _stream())
+    gather_lp.launches += 1
+    _raise_on(err, "gather_lp")
+    return out
+
+
+def gather_lp_abandon(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor,
+                      thresh: torch.Tensor, sb: torch.Tensor, p, base_p: float,
+                      block_d: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Early-abandoning blocked scan -> (dists (B, C) f32, nd (B, C) int32).
+
+    thresh (B,) f32 is each row's abandon bound in power-sum space (-inf
+    freezes the row, +inf never abandons); sb (B, C) f32 the base-metric
+    power sums (0 disables the bounds); base_p 1.0 or 2.0 names their
+    metric; block_d must divide d. Dead and padding candidates score +inf.
+    """
+    if _on_cpu(q):
+        return gather_lp_abandon_ref(q, ids, x, thresh, sb, p, base_p, block_d)
+    b, d = q.shape
+    c = ids.shape[1]
+    n = x.shape[0]
+    if base_p not in (1.0, 2.0):
+        raise ValueError(f"base_p must be 1.0 or 2.0, got {base_p}")
+    if block_d <= 0 or d % block_d:
+        raise ValueError(f"block_d={block_d} does not divide d={d}")
+    ids = ids.to(torch.int32).contiguous()
+    q = q.contiguous()
+    x = x.contiguous()
+    thresh = thresh.to(torch.float32).contiguous()
+    sb = sb.to(torch.float32).contiguous()
+    _check("q", q, torch.float32, (b, d), x.device)
+    _check("x", x, torch.float32, (n, d), q.device)
+    _check("ids", ids, torch.int32, (b, c), q.device)
+    _check("thresh", thresh, torch.float32, (b,), q.device)
+    _check("sb", sb, torch.float32, (b, c), q.device)
+    pv = _p_rows(p, b, q.device)
+    out = torch.empty((b, c), dtype=torch.float32, device=q.device)
+    nd = torch.empty((b, c), dtype=torch.int32, device=q.device)
+    err = _build.launcher("gather_lp_abandon")(
+        ids.data_ptr(), q.data_ptr(), thresh.data_ptr(), sb.data_ptr(), x.data_ptr(),
+        pv.data_ptr(), out.data_ptr(), nd.data_ptr(), b, c, n, d, block_d,
+        1 if base_p == 1.0 else 0, _stream())
+    gather_lp_abandon.launches += 1
+    _raise_on(err, "gather_lp_abandon")
+    return out, nd
+
+
+gather_lp.launches = 0
+gather_lp_abandon.launches = 0

@@ -1,0 +1,264 @@
+"""The port's Lp op table, metrics and candidate-scoring ops against `repro`.
+
+Inputs come from numpy with a fixed seed and go through both packages; JAX
+runs its default CPU dispatch (the jnp references), as repro's own tests do.
+On CPU tensors the port's kernel wrappers run their plain versions, so these
+tests hold the plain versions' semantics; `chip_smoke.py` holds the CUDA
+kernels against the same plain versions on the card.
+
+Tolerances: ids, `nd` and every integer counter are equal; float32 results
+agree to rtol 1e-5, atol 1e-6, because the two frameworks sum in different
+orders (and their exp/log may differ in the last ulp). The p = 2 all-pairs
+form uses the product identity |q|^2 + |x|^2 - 2 q.x, whose cancellation
+error scales with the squared norms, so there the power sums agree to an
+atol of 1e-6 times the largest |q|^2 + |x|^2.
+"""
+
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import lp_ops as rlp
+from repro.core import metrics as rmet
+from repro.kernels import ops as rops
+from repro_torch.core import lp_ops as tlp
+from repro_torch.core import metrics as tmet
+from repro_torch.kernels import _build, lp_distance
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.ref import gather_lp_abandon_ref, gather_lp_ref
+
+P_GRID = [0.5, 0.8, 1.0, 1.25, 1.5, 2.0]
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _close(got, want, err=""):
+    got = got.numpy() if torch.is_tensor(got) else np.asarray(got)
+    want = np.asarray(want)
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want), err_msg=err)
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL, err_msg=err)
+
+
+def _close_pairwise(got, want, q, x, p, root):
+    """All-pairs results; rows under p = 2 are compared as power sums with
+    the product identity's norm-scaled atol (see the module docstring)."""
+    got = got.numpy()
+    want = np.asarray(want)
+    l2 = np.broadcast_to(np.asarray(p, np.float32).reshape(-1, 1) == 2.0, want.shape)
+    _close(got[~l2], want[~l2])
+    if root:
+        got, want = got**2, want**2
+    scale = float(((q * q).sum(1)[:, None] + (x * x).sum(1)[None, :]).max())
+    np.testing.assert_allclose(got[l2], want[l2], rtol=RTOL, atol=ATOL * scale)
+
+
+def _diffs(seed=0, shape=(6, 40)):
+    """Random differences with exact zeros sprinkled in."""
+    rng = np.random.default_rng(seed)
+    a = (rng.standard_normal(shape) * 3).astype(np.float32)
+    a[rng.random(shape) < 0.1] = 0.0
+    return a
+
+
+def _p_rows(b, seed=1):
+    rng = np.random.default_rng(seed)
+    return rng.choice(np.array(P_GRID, np.float32), size=b)
+
+
+@pytest.mark.parametrize("p", P_GRID)
+def test_pow_and_root_match_reference(p):
+    a = _diffs()
+    _close(tlp.abs_pow(torch.from_numpy(a), p), rlp.abs_pow(jnp.asarray(a), p))
+    aa = np.abs(a)
+    _close(tlp.pow_from_abs(torch.from_numpy(aa), p), rlp.pow_from_abs(jnp.asarray(aa), p))
+    _close(tlp.lp_root(torch.from_numpy(aa), p), rlp.lp_root(jnp.asarray(aa), p))
+
+
+def test_per_row_p_gives_the_scalar_bits():
+    """The scalar-vs-vector contract: row i under p[i] equals the scalar
+    call at p[i] bit for bit, and agrees with the reference's vector form."""
+    a = np.abs(_diffs(2))
+    pv = _p_rows(a.shape[0])
+    at = torch.from_numpy(a)
+    got_pow = tlp.pow_from_abs(at, torch.from_numpy(pv)[:, None])
+    got_root = tlp.lp_root(at, torch.from_numpy(pv)[:, None])
+    for i, p in enumerate(pv):
+        np.testing.assert_array_equal(got_pow[i].numpy(), tlp.pow_from_abs(at[i], float(p)).numpy())
+        np.testing.assert_array_equal(got_root[i].numpy(), tlp.lp_root(at[i], float(p)).numpy())
+    _close(got_pow, rlp.pow_from_abs(jnp.asarray(a), jnp.asarray(pv)[:, None]))
+    _close(got_root, rlp.lp_root(jnp.asarray(a), jnp.asarray(pv)[:, None]))
+
+
+@pytest.mark.parametrize("base_p", [1.0, 2.0])
+@pytest.mark.parametrize("p", P_GRID)
+def test_entry_and_suffix_bounds_match_reference(base_p, p):
+    rng = np.random.default_rng(3)
+    sb = (rng.random((5, 7)) * 50).astype(np.float32)
+    sb[0, :3] = [0.0, -1.0, 1e-35]
+    for d in (512, 32.0, 1):
+        _close(tlp.lp_entry_bound(torch.from_numpy(sb), base_p, p, d),
+               rlp.lp_entry_bound(jnp.asarray(sb), base_p, p, d))
+        _close(tlp.lp_suffix_bound(torch.from_numpy(sb), base_p, p, d),
+               rlp.lp_suffix_bound(jnp.asarray(sb), base_p, p, d))
+    pv = _p_rows(5, seed=4)
+    _close(tlp.lp_entry_bound(torch.from_numpy(sb), base_p, torch.from_numpy(pv)[:, None], 96),
+           rlp.lp_entry_bound(jnp.asarray(sb), base_p, jnp.asarray(pv)[:, None], 96))
+
+
+@pytest.mark.parametrize("root", [False, True])
+@pytest.mark.parametrize("p", P_GRID)
+def test_metrics_match_reference(p, root):
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((4, 24)).astype(np.float32)
+    x = rng.standard_normal((9, 24)).astype(np.float32)
+    x[0] = q[0]                                    # a zero difference row
+    c = rng.standard_normal((4, 6, 24)).astype(np.float32)
+    tq, tx, tc = map(torch.from_numpy, (q, x, c))
+    _close(tmet.lp_distance(tq[:, None], tx[None], p, root),
+           rmet.lp_distance(jnp.asarray(q)[:, None], jnp.asarray(x)[None], p, root))
+    _close_pairwise(tmet.pairwise_lp(tq, tx, p, root),
+                    rmet.pairwise_lp(jnp.asarray(q), jnp.asarray(x), p, root), q, x, p, root)
+    _close(tmet.rowwise_lp(tq, tc, p, root),
+           rmet.rowwise_lp(jnp.asarray(q), jnp.asarray(c), p, root))
+
+
+def test_metrics_per_row_p_match_reference():
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((6, 16)).astype(np.float32)
+    x = rng.standard_normal((7, 16)).astype(np.float32)
+    c = rng.standard_normal((6, 5, 16)).astype(np.float32)
+    pv = _p_rows(6, seed=7)
+    tq, tx, tc, tp = map(torch.from_numpy, (q, x, c, pv))
+    for root in (False, True):
+        _close_pairwise(tmet.pairwise_lp(tq, tx, tp, root),
+                        rmet.pairwise_lp(jnp.asarray(q), jnp.asarray(x), jnp.asarray(pv), root),
+                        q, x, pv, root)
+        _close(tmet.rowwise_lp(tq, tc, tp, root),
+               rmet.rowwise_lp(jnp.asarray(q), jnp.asarray(c), jnp.asarray(pv), root))
+        _close(tmet.lp_distance(tq, tc[:, 0], tp, root),
+               rmet.lp_distance(jnp.asarray(q), jnp.asarray(c[:, 0]), jnp.asarray(pv), root))
+
+
+def test_base_metric_rule_and_cost_model_match_reference():
+    pv = np.array([0.5, 1.4, 1.41, 2.0], np.float32)
+    np.testing.assert_array_equal(tmet.base_metric_for(pv), rmet.base_metric_for(pv))
+    np.testing.assert_array_equal(tmet.base_metric_for(torch.from_numpy(pv)),
+                                  rmet.base_metric_for(pv))
+    for p in P_GRID:
+        assert tmet.base_metric_for(p) == rmet.base_metric_for(p)
+        assert tmet.lp_distance_cost_model(p, 96) == rmet.lp_distance_cost_model(p, 96)
+    for bad in (0.4, 2.1, float("nan")):
+        with pytest.raises(ValueError):
+            tmet.base_metric_for(bad)
+    q = np.ones((2, 3), np.float32)
+    np.testing.assert_array_equal(tmet.numpy_lp(q, q + 1, 0.5), rmet.numpy_lp(q, q + 1, 0.5))
+
+
+def _gather_case(seed=0, b=6, c=40, n=250, d=64):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, d)) * 2).astype(np.float32)
+    x = (rng.standard_normal((n, d)) * 2).astype(np.float32)
+    ids = rng.integers(-1, n + 2, size=(b, c)).astype(np.int32)   # -1, n, n+1 are padding
+    return q, x, ids, rng
+
+
+@pytest.mark.parametrize("p", P_GRID + ["rows"])
+def test_lp_gather_distance_matches_reference(p):
+    q, x, ids, _ = _gather_case()
+    pt = torch.from_numpy(_p_rows(q.shape[0])) if p == "rows" else p
+    pj = jnp.asarray(pt.numpy()) if p == "rows" else p
+    for root in (False, True):
+        got = tops.lp_gather_distance(torch.from_numpy(q), torch.from_numpy(ids),
+                                      torch.from_numpy(x), pt, root=root)
+        want = rops.lp_gather_distance(jnp.asarray(q), jnp.asarray(ids), jnp.asarray(x), pj,
+                                       root=root)
+        _close(got, want, f"p={p} root={root}")
+
+
+@pytest.mark.parametrize("p", [0.8, 2.0, "rows"])
+def test_lp_gather_distance_shared_ids_matches_reference(p):
+    """1-D ids: every query scores the same rows (pairwise form)."""
+    q, x, ids, _ = _gather_case(seed=1)
+    row = ids[0]
+    pt = torch.from_numpy(_p_rows(q.shape[0])) if p == "rows" else p
+    pj = jnp.asarray(pt.numpy()) if p == "rows" else p
+    got = tops.lp_gather_distance(torch.from_numpy(q), torch.from_numpy(row),
+                                  torch.from_numpy(x), pt)
+    want = rops.lp_gather_distance(jnp.asarray(q), jnp.asarray(row), jnp.asarray(x), pj)
+    _close(got, want)
+
+
+def _thresholds(full, rng):
+    """Per-row bounds around each row's 30th percentile, plus +-inf rows."""
+    fin = np.where(np.isfinite(full), full, np.nan)
+    thr = np.nanpercentile(fin, 30, axis=1).astype(np.float32)
+    thr *= (1.0 + 1e-3 * rng.standard_normal(thr.shape)).astype(np.float32)
+    thr[0] = np.inf
+    thr[1] = -np.inf
+    return thr
+
+
+@pytest.mark.parametrize("base_p", [1.0, 2.0])
+@pytest.mark.parametrize("p", [0.5, 0.8, 1.25, 1.5, 2.0, "rows"])
+def test_lp_gather_abandon_matches_reference(p, base_p):
+    q, x, ids, rng = _gather_case(seed=2, d=96)
+    pt = torch.from_numpy(_p_rows(q.shape[0], seed=8)) if p == "rows" else p
+    pj = jnp.asarray(pt.numpy()) if p == "rows" else p
+    full = np.asarray(rops.lp_gather_distance(jnp.asarray(q), jnp.asarray(ids), jnp.asarray(x), pj))
+    thr = _thresholds(full, rng)
+    # true base sums of the candidates, or 0 (bounds off) for some rows
+    base = np.asarray(rops.lp_gather_distance(jnp.asarray(q), jnp.asarray(ids), jnp.asarray(x),
+                                              base_p))
+    sb = np.where(np.isfinite(base), base, 0.0).astype(np.float32)
+    sb[2] = 0.0
+    got, nd = tops.lp_gather_abandon(torch.from_numpy(q), torch.from_numpy(ids),
+                                     torch.from_numpy(x), torch.from_numpy(thr),
+                                     torch.from_numpy(sb), pt, base_p=base_p)
+    want, nd_ref = rops.lp_gather_abandon(jnp.asarray(q), jnp.asarray(ids), jnp.asarray(x),
+                                          jnp.asarray(thr), jnp.asarray(sb), pj, base_p=base_p)
+    np.testing.assert_array_equal(nd.numpy(), np.asarray(nd_ref))
+    _close(got, want)
+    assert nd.dtype == torch.int32
+    assert int(nd[1].sum()) == 0                      # a frozen row scans nothing
+    assert bool(torch.isinf(got[1]).all())
+
+
+@pytest.mark.parametrize("d", [512, 96, 48, 40, 7])
+def test_abandon_block_width_matches_reference(d):
+    assert tops.pick_abandon_block_d(d) == rops.pick_abandon_block_d(d)
+
+
+def test_wrappers_run_plain_versions_on_cpu_without_counting():
+    q, x, ids, _ = _gather_case(seed=3)
+    tq, tx, ti = map(torch.from_numpy, (q, x, ids))
+    lp_distance.reset_launch_counts()
+    np.testing.assert_array_equal(lp_distance.gather_lp(tq, ti, tx, 0.8).numpy(),
+                                  gather_lp_ref(tq, ti, tx, 0.8).numpy())
+    thr = torch.full((q.shape[0],), 1e9)
+    sb = torch.zeros(ids.shape)
+    got = lp_distance.gather_lp_abandon(tq, ti, tx, thr, sb, 0.8, 1.0, 32)
+    want = gather_lp_abandon_ref(tq, ti, tx, thr, sb, 0.8, 1.0, 32)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert lp_distance.launch_counts() == {"gather_lp": 0, "gather_lp_abandon": 0}
+
+
+def test_wrappers_refuse_other_devices():
+    q = torch.zeros((2, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        lp_distance.gather_lp(q, torch.zeros((2, 3), dtype=torch.int32, device="meta"),
+                              torch.zeros((5, 4), device="meta"), 1.0)
+
+
+def test_kernel_sources_match_their_ctypes_signatures():
+    """Each library's C launcher exists in its source with as many
+    parameters as the ctypes binding declares (no nvcc here to check it)."""
+    for name, (symbol, argtypes) in _build.LAUNCHERS.items():
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", src)
+        assert m, f"{symbol} missing from {name}.cu"
+        assert len(m.group(1).split(",")) == len(argtypes), symbol
+        assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
