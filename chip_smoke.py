@@ -1,21 +1,33 @@
 #!/usr/bin/env python3
-"""Drives the port's U-HNSW query path once on one CUDA card, at full size.
+"""Drives the port's U-HNSW paths once on one CUDA card, at full size.
 
     python3 chip_smoke.py
 
-The path: the synthetic Sun corpus at its published size (78,306 x 512,
-256 queries, seed 0) -> UHNSW.build (G1 under L1 and G2 under L2, bulk
-builder, m = 16, dense steps on the card) -> UHNSW.search with the default
-parameters (t = 300, tau = 0.92, kappa = k // 2, ef = 2t, early-abandoning
-verification) at k = 10 and p in {0.5, 0.8, 1.25, 2.0}, then once on a
-mixed-p batch cycling through the same four values.
+The corpus: the synthetic Sun corpus at its published size (78,306 x 512,
+256 queries, seed 0). Three paths, each driven with the kernels' launch
+counts set to 0 just before it and read just after:
+
+  1. the query path (phase `search`): UHNSW.build(method="bulk_host", m = 16,
+     dense steps on the card) -> UHNSW.search with the default parameters
+     (t = 300, tau = 0.92, kappa = k // 2, ef = 2t, early-abandoning
+     verification) at k = 10 and p in {0.5, 0.8, 1.25, 2.0}, then a mixed-p
+     batch cycling through the same four values (gather_lp,
+     gather_lp_abandon);
+  2. the shared-pass bulk build (phase `index_bulk`): UHNSW.build(
+     method="bulk", m = 16), both graphs from one NN-Descent pass on the card
+     (pairwise_lp, gather_lp), then the same searches on its graphs (phase
+     `search_bulk`);
+  3. the compressed band (phase `band`): the bulk index searched with
+     compressed_band=True (gather_lp_screen, gather_lp), then with
+     energy_perm=True, at every p and the mixed batch.
 
 It builds the CUDA kernels with nvcc first, holds each kernel against its
-plain PyTorch version on the card at the path's shapes, measures recall
+plain PyTorch version on the card at the paths' shapes, measures recall
 against a brute-force top-k and checks it against the same search with the
-plain versions, and checks that every row of the mixed batch equals the
-scalar call at its p. One JSON object per phase, with its seconds, goes to stdout;
-then the card's name and power limit, the kernel summary, and last
+plain versions, checks that every row of a mixed batch equals the scalar
+call at its p, and that the band and energy-ordered paths return the
+default path's ids. One JSON object per phase, with its seconds, goes to
+stdout; then the card's name and power limit, the kernel summary, and last
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
 Without a CUDA device it exits with code 2 before doing anything.
 """
@@ -37,13 +49,24 @@ N_QUERIES = 256
 K = 10
 M = 16
 RTOL = 1e-5              # f32 sums taken in another order than the plain version
+ATOL = 1e-6              # the tests' absolute floor beside RTOL (band / energy_perm dists)
+PLAIN_ROWS = 256         # rows of a level the plain pairwise version scores at a time
+SHARED_IDS = 1024        # rows of the shared-ids (1-D) pairwise form
 MAX_RECALL_GAP = 0.002
 TIMING_REPS = 50
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# H100 SXM float32 outside the tensor cores, NVIDIA data sheet. The figure
+# counts an FMA as 2 FLOPs; instructions that are not FMAs issue at half of
+# it (about 33.5 T/s), so for the counts below the bound is one the card
+# cannot reach.
+F32_OPS_PER_S = 67e12
 # Operations per element of each p family: sub, abs, (pow sequence), add.
 OPS_PER_ELEMENT = {1.0: 3, 2.0: 3, 0.5: 4, 1.5: 5}
 OPS_GENERAL = 6
+OPS_IDENTITY = 2         # a p = 2 row of the pairwise kernel: one FMA per element
+# The screen's extra operations per scanned band element: convert, scale, sub,
+# abs, minus and plus the radius, max, and the base-metric upper term.
+OPS_SCREEN_EXTRA = 8
 
 
 def emit(obj) -> None:
@@ -104,17 +127,46 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 @contextmanager
 def plain_versions():
-    """Routes the query path's two kernel wrappers to their plain versions
-    for the comparison run; the kernels' own code is not touched."""
+    """Routes the paths' four kernel wrappers to their plain versions for
+    the comparison runs; the kernels' own code is not touched."""
+    import torch
+
     from repro_torch.kernels import lp_distance, ref
 
-    saved = lp_distance.gather_lp, lp_distance.gather_lp_abandon
-    lp_distance.gather_lp = ref.gather_lp_ref
-    lp_distance.gather_lp_abandon = ref.gather_lp_abandon_ref
+    def uncounted(fn):
+        def call(*args):
+            return fn(*args)
+        call.launches = 0          # a plain version launches no kernel
+        return call
+
+    def screen_ref(*args):
+        keep, nd = ref.gather_lp_screen_ref(*args)
+        return keep.to(torch.int32), nd
+
+    plain = {"pairwise_lp": uncounted(ref.pairwise_lp_ref),
+             "gather_lp": uncounted(ref.gather_lp_ref),
+             "gather_lp_abandon": uncounted(ref.gather_lp_abandon_ref),
+             "gather_lp_screen": uncounted(screen_ref)}
+    saved = {name: getattr(lp_distance, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(lp_distance, name, fn)
     try:
         yield
     finally:
-        lp_distance.gather_lp, lp_distance.gather_lp_abandon = saved
+        for name, fn in saved.items():
+            setattr(lp_distance, name, fn)
+
+
+def counted(fn, *args, **kwargs):
+    """Runs one path with every launch count set to 0 just before it and
+    read just after: (its result, {kernel: launches})."""
+    from repro_torch.kernels import lp_distance as kd
+
+    _sync()
+    kd.reset_launch_counts()
+    out = fn(*args, **kwargs)
+    _sync()
+    return out, kd.launch_counts()
 
 
 def rel_err(got, want) -> tuple[float, float, int]:
@@ -181,26 +233,75 @@ def phase_data(dev):
     return X, Q
 
 
-def phase_index(X):
+def phase_truth(X, Q):
+    """Brute-force top-10 at every p of the paths (and p = 1 for G1's beam)."""
+    from repro_torch.core.hnsw import exact_topk
+
+    t0 = _now()
+    truth = {p: exact_topk(X, Q, p, K)[0] for p in (*P_SCALAR, 1.0)}
+    emit({"phase": "truth", "seconds": _now() - t0})
+    return truth
+
+
+def graph_stats(index, Q, truth) -> dict:
+    """Each base graph's mean level-0 degree and its own beam under its base
+    metric: recall@10, and the share of queries whose beam finds none of
+    the true top-10 (stranded)."""
+    from repro_torch.core.hnsw import GraphArrays
+    from repro_torch.core.uhnsw import recall
+
+    out = {}
+    for name, g, b in (("g1", index.g1, 1.0), ("g2", index.g2, 2.0)):
+        adj0 = GraphArrays.from_graph(g).adj0
+        deg = float((adj0 < g.n).sum(1).float().mean())
+        check(g.n == index.X.shape[0] and adj0.shape == (g.n, 2 * M), f"{name} shape")
+        check(deg > M, f"{name} mean level-0 degree {deg}")
+        c = index.search_stage_candidates(Q, b)
+        hits = (c.ids[:, :K, None] == truth[b][:, None, :]).any(-1).sum(1)
+        out[name] = {"max_level": g.max_level, "mean_l0_degree": deg,
+                     "index_mib": g.index_size_bytes() / 2**20,
+                     "beam_recall@10": recall(c.ids[:, :K], truth[b]),
+                     "stranded_share": float((hits == 0).float().mean())}
+    return out
+
+
+def phase_index(X, Q, truth):
+    """The host bulk builder (slice 1's path)."""
     import torch
 
     from repro_torch.core.uhnsw import UHNSW
 
     torch.cuda.reset_peak_memory_stats()
     t0 = _now()
-    index = UHNSW.build(X, m=M, seed=0)
-    t1 = _now()
-    graphs = {}
-    for name, g in (("g1", index.g1), ("g2", index.g2)):
-        adj0 = g.adjacency[0]
-        deg = float((adj0 >= 0).sum(1).float().mean())
-        check(g.n == X.shape[0] and adj0.shape == (X.shape[0], 2 * M), f"{name} shape")
-        check(deg > M, f"{name} mean level-0 degree {deg}")
-        graphs[name] = {"max_level": g.max_level, "mean_l0_degree": deg,
-                        "index_mib": g.index_size_bytes() / 2**20}
-    emit({"phase": "index", "seconds": t1 - t0, **graphs,
-          "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20})
-    return index
+    index = UHNSW.build(X, m=M, seed=0, method="bulk_host")
+    seconds = _now() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    stats = graph_stats(index, Q, truth)
+    emit({"phase": "index", "method": "bulk_host", "seconds": seconds, **stats,
+          "peak_device_mib": peak})
+    return index, {"seconds": seconds, "peak_device_mib": peak, "graphs": stats}
+
+
+def phase_index_bulk(X, Q, truth, host):
+    """The shared-pass bulk build, counted, beside the host builder's figures."""
+    import torch
+
+    from repro_torch.core.uhnsw import UHNSW
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = _now()
+    index, launched = counted(UHNSW.build, X, m=M, seed=0, method="bulk")
+    seconds = _now() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check(launched["pairwise_lp"] > 0 and launched["gather_lp"] > 0,
+          f"bulk build did not launch its kernels: {launched}")
+    stats = graph_stats(index, Q, truth)
+    emit({"phase": "index_bulk", "method": "bulk", "seconds": seconds, **stats,
+          "peak_device_mib": peak, "launches": launched,
+          "host_builder": {"seconds": host["seconds"],
+                           "peak_device_mib": host["peak_device_mib"],
+                           **host["graphs"]}})
+    return index, launched
 
 
 def phase_kernels(index, Q):
@@ -287,77 +388,84 @@ def _search(index, Q, p):
     return ids, dists, st, _now() - t0
 
 
-def phase_search(index, Q):
-    """The main path, counted: every p, then the mixed batch.
+def mixed_p(b: int) -> np.ndarray:
+    return np.array([P_SCALAR[i % 4] for i in range(b)], dtype=np.float32)
+
+
+def run_searches(index, Q) -> dict:
+    """Every scalar p, then the mixed batch: {p or "mixed": (ids, dists,
+    stats, seconds, launches of that batch)}."""
+    from repro_torch.kernels import lp_distance as kd
+
+    results = {}
+    for p in (*P_SCALAR, "mixed"):
+        before = kd.launch_counts()
+        out = _search(index, Q, mixed_p(Q.shape[0]) if p == "mixed" else p)
+        results[p] = (*out, {k: v - before[k] for k, v in kd.launch_counts().items()})
+    return results
+
+
+def mixed_truth(truth, b: int):
+    import torch
+
+    return torch.stack([truth[P_SCALAR[i % 4]][i] for i in range(b)])
+
+
+def phase_search(index, Q, truth, label: str):
+    """A query path, counted: every p, then the mixed batch.
 
     Recall is measured against a brute-force top-10 and reported with what
     bounds it: the share of the true top-10 inside the t candidates (the
     ceiling of verification) and the base graphs' own recall under their
-    base metric (navigation). The checks are the port's correctness: the
-    kernel path's recall equals the plain path's within MAX_RECALL_GAP, and
-    is at least that of the first k candidates in base order (verification
-    never drops a true neighbour it has scored).
+    base metric (navigation, in the index phases). The checks are the
+    port's correctness: the kernel path's recall equals the plain path's
+    within MAX_RECALL_GAP, and at a scalar p is at least that of the first
+    k candidates in base order (verification never drops a true neighbour
+    it has scored).
     """
     import torch
 
-    from repro_torch.core.hnsw import exact_topk
     from repro_torch.core.metrics import base_metric_for
     from repro_torch.core.uhnsw import recall
-    from repro_torch.kernels import lp_distance as kd
 
     t0 = _now()
-    truth = {p: exact_topk(index.X, Q, p, K)[0] for p in (*P_SCALAR, 1.0)}
-    gt_seconds = _now() - t0
     cands = {b: index.search_stage_candidates(Q, b) for b in (1.0, 2.0)}
-    graphs = {}
-    for b, c in cands.items():
-        hits = (c.ids[:, :K, None] == truth[b][:, None, :]).any(-1).sum(1)
-        graphs[f"g{int(b)}"] = {"beam_recall@10": recall(c.ids[:, :K], truth[b]),
-                                "stranded_share": float((hits == 0).float().mean())}
-    p_mix = np.array([P_SCALAR[i % 4] for i in range(Q.shape[0])], dtype=np.float32)
     _search(index, Q, 0.8)                                    # warm-up, not counted
-
-    kd.reset_launch_counts()
-    results = {}
-    for p in P_SCALAR:
-        before = kd.launch_counts()
-        results[p] = _search(index, Q, p)
-        results[p] = (*results[p], {k: v - before[k] for k, v in kd.launch_counts().items()})
-    before = kd.launch_counts()
-    mixed = _search(index, Q, p_mix)
-    mixed = (*mixed, {k: v - before[k] for k, v in kd.launch_counts().items()})
-    counts = kd.launch_counts()
-
+    results, counts = counted(run_searches, index, Q)
     with plain_versions():
-        plain = {p: index.search(Q, p, K)[0] for p in P_SCALAR}
+        plain = run_searches(index, Q)
     per_p = {}
-    for p in P_SCALAR:
+    for p in (*P_SCALAR, "mixed"):
         ids, dists, st, secs, launched = results[p]
-        c = cands[base_metric_for(p)]
-        r = recall(ids, truth[p])
-        r_plain = recall(plain[p], truth[p])
-        r_first = recall(c.ids[:, :K], truth[p])
-        per_p[str(p)] = {
-            "recall@10": r, "recall@10_plain": r_plain,
-            "candidate_ceiling": recall(c.ids, truth[p]), "base_order_recall@10": r_first,
-            "ids_equal_plain": float((ids == plain[p]).float().mean()),
-            "mean_n_b": float(st.n_b.float().mean()), "mean_n_p": float(st.n_p.float().mean()),
-            "mean_hops": float(st.hops.float().mean()),
-            "n_dim_frac": float(torch.as_tensor(st.n_dim_frac).float().mean()),
-            "iterations": st.iterations, "batch_seconds": secs, "launches": launched}
-        check(abs(r - r_plain) <= MAX_RECALL_GAP, f"recall {r} vs plain {r_plain} at p={p}")
-        check(r >= r_first, f"recall {r} below the first-k base order's {r_first} at p={p}")
-        check(bool(dists.isfinite().all()) and ids.shape == (Q.shape[0], K), f"output at p={p}")
+        tr = mixed_truth(truth, Q.shape[0]) if p == "mixed" else truth[p]
+        r = recall(ids, tr)
+        r_plain = recall(plain[p][0], tr)
+        row = {"recall@10": r, "recall@10_plain": r_plain,
+               "ids_equal_plain": float((ids == plain[p][0]).float().mean()),
+               "mean_n_b": float(st.n_b.float().mean()), "mean_n_p": float(st.n_p.float().mean()),
+               "mean_hops": float(st.hops.float().mean()),
+               "n_dim_frac": float(torch.as_tensor(st.n_dim_frac).float().mean()),
+               "iterations": st.iterations, "batch_seconds": secs, "launches": launched}
+        if p != "mixed":
+            c = cands[base_metric_for(p)]
+            r_first = recall(c.ids[:, :K], tr)
+            row.update({"candidate_ceiling": recall(c.ids, tr), "base_order_recall@10": r_first})
+            check(r >= r_first, f"{label}: recall {r} below the first-k base order's {r_first} "
+                                f"at p={p}")
+        per_p[str(p)] = row
+        check(abs(r - r_plain) <= MAX_RECALL_GAP, f"{label}: recall {r} vs plain {r_plain} at p={p}")
+        check(bool(dists.isfinite().all()) and ids.shape == (Q.shape[0], K),
+              f"{label}: output at p={p}")
     check(counts["gather_lp"] > 0 and counts["gather_lp_abandon"] > 0,
-          f"kernels not launched on the main path: {counts}")
-    emit({"phase": "search", "seconds": _now() - t0, "ground_truth_seconds": gt_seconds,
-          "graphs": graphs, "per_p": per_p, "launches": counts})
-    return results, mixed, p_mix, counts
+          f"{label}: kernels not launched on the query path: {counts}")
+    emit({"phase": label, "seconds": _now() - t0, "per_p": per_p, "launches": counts})
+    return results, counts
 
 
-def phase_mixed(results, mixed, p_mix):
+def phase_mixed(results, label: str):
     t0 = time.perf_counter()
-    ids_m, d_m, st_m, secs, launched = mixed
+    ids_m, d_m, st_m, secs, launched = results["mixed"]
+    p_mix = mixed_p(ids_m.shape[0])
     rows_equal = 0
     for p in P_SCALAR:
         sel = np.flatnonzero(p_mix == np.float32(p))
@@ -365,11 +473,289 @@ def phase_mixed(results, mixed, p_mix):
         same = (bool((ids_m[sel] == ids[sel]).all()) and bool((d_m[sel] == dists[sel]).all())
                 and bool((st_m.n_p[sel] == st.n_p[sel]).all())
                 and bool((st_m.n_b[sel] == st.n_b[sel]).all()))
-        check(same, f"mixed-p rows at p={p} differ from the scalar call")
+        check(same, f"{label}: mixed-p rows at p={p} differ from the scalar call")
         rows_equal += len(sel)
-    emit({"phase": "mixed", "seconds": time.perf_counter() - t0, "batch_seconds": secs,
+    emit({"phase": label, "seconds": time.perf_counter() - t0, "batch_seconds": secs,
           "rows_equal_to_scalar": rows_equal, "launches": launched,
           "mean_n_p": float(st_m.n_p.float().mean())})
+
+
+def pairwise_errors(got, want, q, x, p):
+    """(max relative error on rows off p = 2, max absolute error, max of
+    |error| / (|q|^2 + |x|^2) on p = 2 rows, entries finite in only one)."""
+    import torch
+
+    pv = torch.as_tensor(p, dtype=torch.float32, device=q.device).reshape(-1, 1)
+    l2 = (pv == 2.0).expand_as(want)
+    err = (got.double() - want.double()).abs()
+    norms = (q.double() ** 2).sum(1)[:, None] + (x.double() ** 2).sum(1)[None, :]
+    rel = err / want.double().abs().clamp_min(1e-30)
+    mismatch = int((got.isfinite() != want.isfinite()).sum())
+    off = rel[~l2]
+    on = (err / norms)[l2]
+    return (float(off.max()) if off.numel() else 0.0, float(err.max()),
+            float(on.max()) if on.numel() else 0.0, mismatch)
+
+
+def pairwise_bound(b: int, n: int, d: int, p, inputs: int) -> tuple[float, str]:
+    """Bound of a (b, n) pairwise call over d: `inputs` * d floats per
+    output row and column read once, the output written once."""
+    import torch
+
+    ope = np.array([OPS_IDENTITY if v == 2.0 else OPS_PER_ELEMENT.get(v, OPS_GENERAL)
+                    for v in np.broadcast_to(torch.as_tensor(p).cpu().numpy(), (b,))])
+    return bound(4 * (inputs * d + b * n + b), float(ope.sum()) * n * d)
+
+
+def check_pairwise(label: str, errors) -> dict:
+    rel, abs_err, l2_rel, mismatch = errors
+    check(mismatch == 0 and rel <= RTOL and l2_rel <= RTOL,
+          f"pairwise_lp {label}: rel {rel}, p=2 norm-scaled {l2_rel}, mismatch {mismatch}")
+    return {"max_rel_err": rel, "max_abs_err": abs_err, "p2_err_over_norms": l2_rel}
+
+
+def pairwise_case(q, x, p, label: str):
+    """The shared-ids form: one call against its plain version."""
+    from repro_torch.kernels import lp_distance as kd
+    from repro_torch.kernels import ref
+
+    got = kd.pairwise_lp(q, x, p)
+    want = ref.pairwise_lp_ref(q, x, p)
+    _sync()
+    errs = check_pairwise(label, pairwise_errors(got, want, q, x, p))
+    (b, d), n = q.shape, x.shape[0]
+    bnd = pairwise_bound(b, n, d, p, b + n)
+    return {"case": label, "shape": [b, n, d], **errs,
+            "ms": median_ms(lambda: kd.pairwise_lp(q, x, p)),
+            "plain_ms": median_ms(lambda: ref.pairwise_lp_ref(q, x, p), reps=10),
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+
+def pairwise_level(sub, p: float, label: str, timed: bool):
+    """The call the shared-pass build makes for one upper level: all of
+    the level's nodes against all of them in one launch, compared with the
+    plain version PLAIN_ROWS rows at a time (it builds a (rows, n, d)
+    block), the last, partial block of rows included."""
+    import torch
+
+    from repro_torch.kernels import lp_distance as kd
+    from repro_torch.kernels import ref
+
+    nl, d = sub.shape
+    got = kd.pairwise_lp(sub, sub, p)
+    _sync()
+    blocks = [pairwise_errors(got[s:s + PLAIN_ROWS], ref.pairwise_lp_ref(sub[s:s + PLAIN_ROWS],
+                                                                           sub, p),
+                              sub[s:s + PLAIN_ROWS], sub, p)
+              for s in range(0, nl, PLAIN_ROWS)]
+    errs = check_pairwise(label, (max(e[0] for e in blocks), max(e[1] for e in blocks),
+                                  max(e[2] for e in blocks), sum(e[3] for e in blocks)))
+    row = {"case": label, "shape": [nl, nl, d], "plain_blocks": len(blocks), **errs}
+    if timed:
+        def plain():
+            return [ref.pairwise_lp_ref(sub[s:s + PLAIN_ROWS], sub, p)
+                    for s in range(0, nl, PLAIN_ROWS)]
+
+        bnd = pairwise_bound(nl, nl, d, p, nl)
+        # the library call: one PyTorch call of the same function (rooted at p = 2)
+        row.update({"ms": median_ms(lambda: kd.pairwise_lp(sub, sub, p), reps=10),
+                    "plain_ms": median_ms(plain, reps=5, warmup=1),
+                    "bound_ms": bnd[0], "bound_by": bnd[1],
+                    "library_ms": median_ms(lambda: torch.cdist(sub, sub, p=float(p)),
+                                            reps=10)})
+    return row
+
+
+def screen_case(Qp, batch, band, thresh, sb, p, base, bd, label):
+    """gather_lp_screen against its plain version: keep and nd equal on
+    every candidate. Kills are counted by where they fell: at entry
+    (nd = 0) or mid-scan (0 < nd < d)."""
+    from repro_torch.kernels import lp_distance as kd
+    from repro_torch.kernels import ref
+
+    keep, nd = kd.gather_lp_screen(Qp, batch, band.codes, band.scale, band.radius, thresh, sb,
+                                   p, base, bd)
+    k_ref, nd_ref = ref.gather_lp_screen_ref(Qp, batch, band.codes, band.scale, band.radius,
+                                             thresh, sb, p, base, bd)
+    _sync()
+    keep_diff = int((keep.bool() != k_ref).sum())
+    nd_diff = int((nd != nd_ref).sum())
+    check(keep_diff == 0 and nd_diff == 0,
+          f"gather_lp_screen p={label}: keep differs on {keep_diff}, nd on {nd_diff}")
+    n, d = band.codes.shape
+    killed = (batch >= 0) & (batch < n) & ~keep.bool()
+    return nd, {"survivors": int(keep.sum()), "kills": int(killed.sum()),
+                "entry_kills": int((killed & (nd == 0)).sum()),
+                "mid_scan_kills": int((killed & (nd > 0) & (nd < d)).sum()),
+                "nd_values": int(nd.unique().numel()),
+                "keep_mismatch": keep_diff, "nd_mismatch": nd_diff}
+
+
+def screen_tight(Qp, batch, band, sb, p, base, bd, label) -> dict:
+    """The screen at thresholds that kill: each row's median of the plain
+    certified lower bound over its batch, times 1/4, 1/2, 3/4 or 1 by row.
+    The batch's bounds lie within a few percent of each other, so the
+    median alone kills only at the last block; the smaller factors make
+    candidates die at every depth in every p family. Once with the path's
+    base bounds (entry and suffix tests), once with none (sb = 0: the
+    lower-bound sum alone; at p = 2 the base bound is exact, so with it
+    every kill is at entry). Each must kill; the
+    second must kill mid-scan, with nd taking at least three values. The
+    kills that the base bound brings forward are the suffix test's."""
+    import torch
+
+    from repro_torch.index.compressed import compressed_lower_bound
+
+    b, c = batch.shape
+    n, d = band.codes.shape
+    rows = torch.arange(b, device=batch.device)
+    lb = compressed_lower_bound(Qp, band.codes[batch.long().clamp(0, n - 1).reshape(-1)],
+                                band.scale, band.radius, p)
+    factor = 0.25 * (1 + rows % 4)
+    thresh = (lb.reshape(b, b, c)[rows, rows].median(dim=1).values * factor).contiguous()
+    out, nds = {}, {}
+    for name, sbc in (("base_bound", sb), ("no_bound", torch.zeros_like(sb))):
+        nds[name], st = screen_case(Qp, batch, band, thresh, sbc, p, base, bd,
+                                    f"{label} tight {name}")
+        check(st["kills"] > 0, f"gather_lp_screen p={label} tight {name}: no kill")
+        out[name] = st
+    # killed mid-scan earlier with the base bound than without: the suffix test
+    nb, nn = nds["base_bound"], nds["no_bound"]
+    out["base_bound"]["suffix_kills"] = int(((nb > 0) & (nb < nn)).sum())
+    st = out["no_bound"]
+    check(st["mid_scan_kills"] > 0 and st["nd_values"] >= 3,
+          f"gather_lp_screen p={label} tight no_bound: {st['mid_scan_kills']} mid-scan kills, "
+          f"{st['nd_values']} nd values")
+    return out
+
+
+def phase_kernels_bulk(index, Q):
+    """pairwise_lp at every upper-level call of the bulk build and at the
+    shared-ids form, gather_lp_screen at the band search's shapes and at
+    thresholds that kill, each against its plain version."""
+    import torch
+
+    from repro_torch.core.metrics import base_metric_for
+    from repro_torch.kernels import lp_distance as kd
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import pick_abandon_block_d
+
+    t0 = _now()
+    X = index.X
+    n, d = X.shape
+    dev = X.device
+    out = {"pairwise_lp": [], "gather_lp_screen": []}
+    worst = {"pairwise_lp": 0.0, "gather_lp_screen": 0.0}
+
+    # every upper level's pass of the bulk build (levels are shared by G1
+    # and G2), at both base metrics, as one launch each; timed at level 1
+    levels = index.g1.levels
+    for lvl in range(1, int(levels.max()) + 1):
+        sub = X[torch.nonzero(levels >= lvl)[:, 0]].contiguous()
+        if sub.shape[0] <= 1:
+            continue                       # the build scores no single-node level
+        for p in (1.0, 2.0):
+            row = pairwise_level(sub, p, f"level {lvl} p={p}", timed=lvl == 1)
+            out["pairwise_lp"].append(row)
+            worst["pairwise_lp"] = max(worst["pairwise_lp"], row["max_abs_err"])
+            emit({"phase": "kernels_bulk", "kernel": "pairwise_lp", **row})
+    ids = torch.from_numpy(np.random.default_rng(0).choice(n, SHARED_IDS, replace=False)).to(dev)
+    p_mix = torch.from_numpy(mixed_p(Q.shape[0])).to(dev)
+    row = pairwise_case(Q, X[ids].contiguous(), p_mix, "shared ids, mixed p")
+    out["pairwise_lp"].append(row)
+    worst["pairwise_lp"] = max(worst["pairwise_lp"], row["max_abs_err"])
+    emit({"phase": "kernels_bulk", "kernel": "pairwise_lp", **row})
+
+    # the screen on the band search's kappa batches
+    band = index.compressed_band()
+    Qp = Q[:, band.perm].contiguous()
+    kappa = K // 2
+    bd = pick_abandon_block_d(d)
+    cands = {b: index.search_stage_candidates(Q, b) for b in (1.0, 2.0)}
+    cases = [(str(p), p, base_metric_for(p)) for p in P_SCALAR] + [("mixed", p_mix, 1.0)]
+    for label, p, base in cases:
+        c = cands[base]
+        first = c.ids[:, :K].contiguous()
+        thresh = torch.sort(ref.gather_lp_ref(Q, first, X, p), dim=1).values[:, K - 1]
+        thresh = thresh.contiguous()
+        batch = c.ids[:, K:K + kappa].contiguous()
+        sb = c.base_dists[:, K:K + kappa].contiguous()
+        nd, stats = screen_case(Qp, batch, band, thresh, sb, p, base, bd, label)
+        # also a batch that mostly survives: the last kappa of the first k,
+        # with every 8th row frozen (-inf) and every 8th unbounded (+inf)
+        r8 = torch.arange(Q.shape[0], device=dev) % 8
+        thr2 = torch.where(r8 == 1, -torch.inf, torch.where(r8 == 2, torch.inf, thresh))
+        _, s_stats = screen_case(Qp, c.ids[:, K - kappa:K].contiguous(), band,
+                                 thr2.contiguous(), c.base_dists[:, K - kappa:K].contiguous(),
+                                 p, base, bd, label + " survivors")
+        check(s_stats["survivors"] > 0, f"no screen survivors to compare at p={label}")
+        t_stats = screen_tight(Qp, batch, band, sb, p, base, bd, label)
+        ope = ops_per_element(p)
+        ope_rows = np.broadcast_to(ope, (Q.shape[0],)) if ope.size > 1 else ope[0]
+        scanned = nd.sum(1).cpu().numpy()
+        live_rows = int((nd.sum(1) > 0).sum())
+        nbytes = scanned.sum() + 4 * live_rows * d + 8 * d + 4 * (4 * batch.numel()
+                                                                  + 2 * Q.shape[0])
+        bnd = bound(nbytes, float(np.sum(scanned * (ope_rows + OPS_SCREEN_EXTRA))))
+        row = {"p": label, "base_p": base, "shape": list(batch.shape), "block_d": bd, **stats,
+               "survivor_case": s_stats, "tight_cases": t_stats, "band_frac": float(scanned.sum() / (batch.numel() * d)),
+               "max_abs_err": 0.0,
+               "ms": median_ms(lambda: kd.gather_lp_screen(Qp, batch, band.codes, band.scale,
+                                                           band.radius, thresh, sb, p, base,
+                                                           bd)),
+               "plain_ms": median_ms(lambda: ref.gather_lp_screen_ref(
+                   Qp, batch, band.codes, band.scale, band.radius, thresh, sb, p, base, bd)),
+               "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+        out["gather_lp_screen"].append(row)
+        emit({"phase": "kernels_bulk", "kernel": "gather_lp_screen", **row})
+    suffix = sum(r["tight_cases"]["base_bound"]["suffix_kills"] for r in out["gather_lp_screen"])
+    check(suffix > 0, "gather_lp_screen: the suffix test killed no candidate in any tight case")
+    emit({"phase": "kernels_bulk", "seconds": _now() - t0})
+    return out, worst
+
+
+def phase_band(index, Q, default_results):
+    """The bulk index searched with compressed_band=True, then with
+    energy_perm=True, at every p and the mixed batch, each counted: ids
+    equal the default abandon path's, dists agree within the tests'
+    tolerance."""
+    from dataclasses import replace
+
+    import torch
+
+    t0 = _now()
+    prm0 = index.params
+    report = {}
+    band_counts = None
+    for flag in ("compressed_band", "energy_perm"):
+        index.params = replace(prm0, **{flag: True})
+        _search(index, Q, 0.8)                     # builds the band or the view; not counted
+        results, counts = counted(run_searches, index, Q)
+        per_p = {}
+        for p in (*P_SCALAR, "mixed"):
+            ids, dists, st, secs, launched = results[p]
+            d_ids, d_dists = default_results[p][:2]
+            check(bool((ids == d_ids).all()), f"{flag}: ids differ from the default at p={p}")
+            fin = d_dists.isfinite()
+            check(bool((dists.isfinite() == fin).all()), f"{flag}: inf pattern at p={p}")
+            err = (dists[fin].double() - d_dists[fin].double()).abs()
+            check(bool((err <= RTOL * d_dists[fin].double().abs() + ATOL).all()),
+                  f"{flag}: dists differ from the default at p={p}")
+            per_p[str(p)] = {
+                "ids_equal_default": True, "max_abs_err": float(err.max()) if err.numel() else 0.0,
+                "n_f32_rows_frac": float(torch.as_tensor(st.n_f32_rows_frac).float().mean()),
+                "n_band_frac": float(torch.as_tensor(st.n_band_frac).float().mean()),
+                "n_dim_frac": float(torch.as_tensor(st.n_dim_frac).float().mean()),
+                "mean_n_p": float(st.n_p.float().mean()), "batch_seconds": secs,
+                "launches": launched}
+        if flag == "compressed_band":
+            check(counts["gather_lp_screen"] > 0 and counts["gather_lp"] > 0,
+                  f"band path did not launch its kernels: {counts}")
+            band_counts = counts
+        report[flag] = {"per_p": per_p, "launches": counts}
+    index.params = prm0
+    emit({"phase": "band", "seconds": _now() - t0, **report})
+    return band_counts
 
 
 def main() -> int:
@@ -387,27 +773,42 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     X, Q = phase_data(dev)
-    index = phase_index(X)
+    truth = phase_truth(X, Q)
+    host_index, host = phase_index(X, Q, truth)
+    bulk_index, build_counts = phase_index_bulk(X, Q, truth, host)
     del X
-    kernel_rows, worst = phase_kernels(index, Q)
-    results, mixed, p_mix, counts = phase_search(index, Q)
-    phase_mixed(results, mixed, p_mix)
+    kernel_rows, worst = phase_kernels(host_index, Q)
+    bulk_rows, worst_bulk = phase_kernels_bulk(bulk_index, Q)
+    results, counts = phase_search(host_index, Q, truth, "search")
+    phase_mixed(results, "mixed")
+    bulk_results, _ = phase_search(bulk_index, Q, truth, "search_bulk")
+    phase_mixed(bulk_results, "mixed_bulk")
+    band_counts = phase_band(bulk_index, Q, bulk_results)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     mix_row = kernel_rows[-1]
+    rows = {"gather_lp": mix_row["gather_lp"], "gather_lp_abandon": mix_row["gather_lp_abandon"],
+            "pairwise_lp": bulk_rows["pairwise_lp"][0],
+            "gather_lp_screen": bulk_rows["gather_lp_screen"][-1]}
+    launches = {"gather_lp": counts["gather_lp"], "gather_lp_abandon": counts["gather_lp_abandon"],
+                "pairwise_lp": build_counts["pairwise_lp"],
+                "gather_lp_screen": band_counts["gather_lp_screen"]}
+    worst = {**worst, **worst_bulk}
     kernels = []
-    for name, replaces, src in (
-            ("gather_lp", "src/repro/kernels/lp_distance.py:384",
-             "src/repro_torch/kernels/csrc/gather_lp.cu"),
-            ("gather_lp_abandon", "src/repro/kernels/lp_distance.py:560",
-             "src/repro_torch/kernels/csrc/gather_lp_abandon.cu")):
-        r = mix_row[name]
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": counts[name], "max_abs_err": worst[name],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+    for name, replaces in (("gather_lp", "src/repro/kernels/lp_distance.py:384"),
+                           ("gather_lp_abandon", "src/repro/kernels/lp_distance.py:560"),
+                           ("pairwise_lp", "src/repro/kernels/lp_distance.py:136"),
+                           ("gather_lp_screen", "src/repro/kernels/lp_distance.py:761")):
+        r = rows[name]
+        check(launches[name] > 0, f"{name} launched no time on its path")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": worst[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r.get("library_ms")})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})

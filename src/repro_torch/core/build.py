@@ -1,8 +1,12 @@
-"""HNSW graph container and the bulk builder (paper §2.2).
+"""HNSW graph container, the sequential builder and the host bulk builder
+(paper §2.2).
 
-Counterpart of `repro.core.build` (`HNSWGraph`, `build_hnsw_bulk` and its
-helpers). The reference runs the whole bulk build in NumPy on the host; here
-its dense steps run in PyTorch on the device of the data:
+Counterpart of `repro.core.build` (`HNSWGraph`, `build_hnsw`,
+`build_hnsw_bulk` and its helpers). The sequential builder (`build_hnsw`)
+is the reference's insertion loop, in NumPy on the host; its frozen graph
+lands on the device asked for. The reference runs the whole bulk build in
+NumPy on the host too; here its dense steps run in PyTorch on the device of
+the data:
 
   * the exact L2 candidate pools (one chunked product + topk),
   * the exact-metric re-rank of the pools,
@@ -12,8 +16,7 @@ its dense steps run in PyTorch on the device of the data:
     scratch stays under 1 GiB whatever n is.
 
 The ragged steps stay on the host (NumPy): the symmetrize step, the top-up
-and the reachability labelling of the repair. The sequential builder
-(`build_hnsw`) is not ported yet.
+and the reachability labelling of the repair.
 
 Graph layout (frozen; tensors on the data's device):
   adjacency[0]   : (n, m0) int32 level-0 neighbour lists, padded with -1
@@ -24,6 +27,7 @@ Graph layout (frozen; tensors on the data's device):
 
 from __future__ import annotations
 
+import heapq
 import math
 from dataclasses import dataclass
 
@@ -35,6 +39,20 @@ from repro_torch.core.lp_ops import abs_pow
 # Scratch budget of each chunk of the dense steps, in float32 elements
 # (256 MiB; with its temporaries a chunk stays under 1 GiB).
 _SCRATCH = 1 << 26
+
+
+def _np_lp(q: np.ndarray, x: np.ndarray, p: float) -> np.ndarray:
+    """Vectorized |q - x_i|_p^p over rows of x (no root: ordering-equivalent)."""
+    d = np.abs(x - q)
+    if p == 2.0:
+        return np.einsum("nd,nd->n", d, d)
+    if p == 1.0:
+        return d.sum(axis=1)
+    if p == 0.5:
+        return np.sqrt(d).sum(axis=1)
+    if p == 1.5:
+        return (d * np.sqrt(d)).sum(axis=1)
+    return (d**p).sum(axis=1)
 
 
 @dataclass
@@ -65,6 +83,201 @@ class HNSWGraph:
         """Index size excluding the dataset (the paper's index-size metric)."""
         return sum(a.numel() * a.element_size()
                    for a in (*self.adjacency, *self.level_nodes, *self.local_index))
+
+
+class _Builder:
+    """The sequential insertion loop (Malkov & Yashunin), in NumPy on the host."""
+
+    def __init__(self, data: np.ndarray, p: float, m: int, ef_construction: int,
+                 seed: int, extend_candidates: bool):
+        self.data = np.ascontiguousarray(data, dtype=np.float32)
+        self.n, self.dim = self.data.shape
+        self.p = p
+        self.m = m
+        self.m0 = 2 * m
+        self.efc = ef_construction
+        self.ml = 1.0 / math.log(m)
+        self.rng = np.random.default_rng(seed)
+        self.extend_candidates = extend_candidates
+
+        self.levels = np.zeros(self.n, dtype=np.int32)
+        # neighbors[l][i] is a Python list during build; frozen at the end.
+        self.neighbors: list[dict[int, list[int]]] = [dict()]
+        self.entry = -1
+        self.max_level = -1
+
+    # -- primitives ---------------------------------------------------------
+
+    def _dist_many(self, q: np.ndarray, ids: np.ndarray) -> np.ndarray:
+        return _np_lp(q, self.data[ids], self.p)
+
+    def _search_layer(self, q: np.ndarray, eps: list[int], ef: int, level: int):
+        """Classic ef-search on one layer; returns [(dist, id)] sorted asc."""
+        adj = self.neighbors[level]
+        visited = set(eps)
+        dists = self._dist_many(q, np.array(eps, dtype=np.int64))
+        cand = [(float(d), e) for d, e in zip(dists, eps)]  # min-heap
+        heapq.heapify(cand)
+        result = [(-float(d), e) for d, e in zip(dists, eps)]  # max-heap (neg)
+        heapq.heapify(result)
+        while len(result) > ef:
+            heapq.heappop(result)
+        while cand:
+            d_c, c = heapq.heappop(cand)
+            worst = -result[0][0]
+            if d_c > worst and len(result) >= ef:
+                break
+            nbrs = [u for u in adj.get(c, ()) if u not in visited]
+            if not nbrs:
+                continue
+            visited.update(nbrs)
+            nd = self._dist_many(q, np.array(nbrs, dtype=np.int64))
+            worst = -result[0][0]
+            for dist, u in zip(nd, nbrs):
+                dist = float(dist)
+                if len(result) < ef or dist < worst:
+                    heapq.heappush(cand, (dist, u))
+                    heapq.heappush(result, (-dist, u))
+                    if len(result) > ef:
+                        heapq.heappop(result)
+                    worst = -result[0][0]
+        out = sorted((-nd, u) for nd, u in result)
+        return out
+
+    def _select_neighbors(self, q: np.ndarray, cands: list[tuple[float, int]],
+                          m: int) -> list[int]:
+        """HNSW heuristic neighbor selection (Alg. 4 of the HNSW paper)."""
+        if len(cands) <= m:
+            return [u for _, u in cands]
+        selected: list[int] = []
+        sel_vecs: list[np.ndarray] = []
+        for d_q, u in cands:  # cands sorted ascending by distance to q
+            if len(selected) >= m:
+                break
+            uv = self.data[u]
+            if sel_vecs:
+                d_sel = _np_lp(uv, np.stack(sel_vecs), self.p)
+                if (d_sel < d_q).any():
+                    continue  # u is closer to an already-selected point
+            selected.append(u)
+            sel_vecs.append(uv)
+        if len(selected) < m:  # backfill with nearest skipped candidates
+            skipped = [u for _, u in cands if u not in set(selected)]
+            selected.extend(skipped[: m - len(selected)])
+        return selected
+
+    def _prune(self, u: int, level: int):
+        """Re-select u's neighbor list if it overflowed m_level."""
+        m_max = self.m0 if level == 0 else self.m
+        adj = self.neighbors[level]
+        lst = adj[u]
+        if len(lst) <= m_max:
+            return
+        uv = self.data[u]
+        arr = np.array(lst, dtype=np.int64)
+        d = _np_lp(uv, self.data[arr], self.p)
+        order = np.argsort(d, kind="stable")
+        cands = [(float(d[i]), int(arr[i])) for i in order]
+        adj[u] = self._select_neighbors(uv, cands, m_max)
+
+    # -- insertion ----------------------------------------------------------
+
+    def insert(self, idx: int):
+        q = self.data[idx]
+        level = int(-math.log(max(self.rng.random(), 1e-12)) * self.ml)
+        self.levels[idx] = level
+        while len(self.neighbors) <= level:
+            self.neighbors.append(dict())
+        for l in range(level + 1):
+            self.neighbors[l][idx] = []
+
+        if self.entry < 0:
+            self.entry = idx
+            self.max_level = level
+            return
+
+        ep = [self.entry]
+        # zoom down through layers above the insertion level (greedy, ef=1)
+        for l in range(self.max_level, level, -1):
+            ep = [u for _, u in self._search_layer(q, ep, 1, l)[:1]]
+        # insert at each layer from min(level, max_level) down to 0
+        for l in range(min(level, self.max_level), -1, -1):
+            w = self._search_layer(q, ep, self.efc, l)
+            m_max = self.m0 if l == 0 else self.m
+            nbrs = self._select_neighbors(q, w, m_max)
+            adj = self.neighbors[l]
+            adj[idx] = list(nbrs)
+            for u in nbrs:
+                adj[u].append(idx)
+                self._prune(u, l)
+            ep = [u for _, u in w]
+        if level > self.max_level:
+            self.max_level = level
+            self.entry = idx
+
+    # -- freeze ---------------------------------------------------------------
+
+    def freeze(self, device) -> HNSWGraph:
+        """The frozen graph, its tensors on `device`."""
+        adjacency, level_nodes, local_index = [], [], []
+        for l, adj in enumerate(self.neighbors):
+            m_max = self.m0 if l == 0 else self.m
+            if l == 0:
+                nodes = np.arange(self.n, dtype=np.int32)
+            else:
+                nodes = np.array(sorted(adj.keys()), dtype=np.int32)
+            mat = np.full((len(nodes), m_max), -1, dtype=np.int32)
+            for row, u in enumerate(nodes):
+                lst = adj.get(int(u), [])[:m_max]
+                mat[row, : len(lst)] = lst
+            g2l = np.full(self.n, -1, dtype=np.int32)
+            g2l[nodes] = np.arange(len(nodes), dtype=np.int32)
+            adjacency.append(torch.from_numpy(mat).to(device))
+            level_nodes.append(torch.from_numpy(nodes).to(device))
+            local_index.append(torch.from_numpy(g2l).to(device))
+        return HNSWGraph(
+            metric_p=self.p,
+            m=self.m,
+            m0=self.m0,
+            ef_construction=self.efc,
+            entry_point=self.entry,
+            max_level=self.max_level,
+            adjacency=adjacency,
+            level_nodes=level_nodes,
+            local_index=local_index,
+            data=torch.from_numpy(self.data).to(device),
+            levels=torch.from_numpy(self.levels).to(device),
+        )
+
+
+def build_hnsw(
+    data,
+    metric_p: float = 2.0,
+    m: int = 32,
+    ef_construction: int = 500,
+    seed: int = 0,
+    extend_candidates: bool = False,
+    progress_every: int = 0,
+    device=None,
+) -> HNSWGraph:
+    """Sequential HNSW construction under base metric L`metric_p`.
+
+    The paper's G1/G2 settings are the defaults (M = 32, efConstruction =
+    500). The insertion loop is the reference's, in NumPy on the host
+    (about 30 ms a point: use `build_hnsw_bulk` or `core.bulk_build` at
+    scale); the frozen graph's tensors land on `device` (None: the data
+    tensor's own device, or "cuda" for a numpy array).
+    """
+    if device is None:
+        device = data.device if torch.is_tensor(data) else "cuda"
+    if torch.is_tensor(data):
+        data = data.detach().cpu().numpy()
+    b = _Builder(data, metric_p, m, ef_construction, seed, extend_candidates)
+    for i in range(b.n):
+        b.insert(i)
+        if progress_every and (i + 1) % progress_every == 0:
+            print(f"  hnsw build p={metric_p}: {i + 1}/{b.n}")
+    return b.freeze(device)
 
 
 def _rows_lp(q: torch.Tensor, rows: torch.Tensor, p: float) -> torch.Tensor:

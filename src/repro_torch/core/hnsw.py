@@ -40,7 +40,11 @@ class GraphArrays:
 
     @classmethod
     def from_graph(cls, g) -> "GraphArrays":
-        """Device topology of a built `repro_torch.core.build.HNSWGraph`."""
+        """Device topology of a built graph: a `core.build.HNSWGraph`'s
+        adjacency repacked, or a `core.bulk_build.DeviceGraph`'s own
+        `graph_arrays()` as it is."""
+        if hasattr(g, "graph_arrays"):
+            return g.graph_arrays()
         n = g.n
 
         def pad(a):

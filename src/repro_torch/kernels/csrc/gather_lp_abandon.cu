@@ -28,24 +28,6 @@
 
 namespace {
 
-// x^e for x >= 0 via exp(e * log x), x <= 0 -> 0 (lp_ops._safe_pow).
-__device__ __forceinline__ float safe_pow(float x, float e) {
-  return x <= 0.0f ? 0.0f : expf(e * logf(fmaxf(x, lp::kEps)));
-}
-
-// lp_ops.lp_entry_bound for one candidate; also the suffix bound over d dims.
-__device__ __forceinline__ float entry_bound(float sb, bool base_l1, float p, float d) {
-  sb = fmaxf(sb, 0.0f);
-  float lb;
-  if (base_l1) {
-    lb = safe_pow(sb, p);
-    if (p > 1.0f) lb = lb * safe_pow(fmaxf(d, 1.0f), 1.0f - p);
-  } else {
-    lb = safe_pow(sb, p * 0.5f);
-  }
-  return lb * lp::kDeflate;
-}
-
 // Scans one live candidate; returns its power sum, or +inf once it dies.
 template <int F>
 __device__ float scan_candidate(const float* __restrict__ xr, const float* __restrict__ qs,
@@ -67,7 +49,7 @@ __device__ float scan_candidate(const float* __restrict__ xr, const float* __res
     const int d_rem = d - (start + block_d);
     bool dead = s > thr;
     if (!dead && d_rem > 0)
-      dead = s + entry_bound(sb - sbase, base_l1, p, static_cast<float>(d_rem)) > thr;
+      dead = s + lp::entry_bound(sb - sbase, base_l1, p, static_cast<float>(d_rem)) > thr;
     if (dead) return INFINITY;
   }
   return s;
@@ -104,7 +86,7 @@ gather_lp_abandon_kernel(const int* __restrict__ ids, const float* __restrict__ 
   float result = INFINITY;
   int nd = 0;
   if (id >= 0 && id < n &&
-      entry_bound(sbv, base_l1, pr, static_cast<float>(d)) <= thr) {
+      lp::entry_bound(sbv, base_l1, pr, static_cast<float>(d)) <= thr) {
     const float* xr = x + static_cast<size_t>(id) * d;
     switch (lp::family_of(pr)) {
       case lp::kL1:

@@ -33,6 +33,25 @@ __device__ __forceinline__ float pow_from_abs(float a, float p) {
   return a == 0.0f ? 0.0f : expf(p * logf(fmaxf(a, kEps)));
 }
 
+// x^e for x >= 0 via exp(e * log x), x <= 0 -> 0 (lp_ops._safe_pow).
+__device__ __forceinline__ float safe_pow(float x, float e) {
+  return x <= 0.0f ? 0.0f : expf(e * logf(fmaxf(x, kEps)));
+}
+
+// lp_ops.lp_entry_bound for one candidate from its base power sum sb over d dims
+// (base_l1: sb holds an L1 sum, else a squared L2 sum); also the suffix bound.
+__device__ __forceinline__ float entry_bound(float sb, bool base_l1, float p, float d) {
+  sb = fmaxf(sb, 0.0f);
+  float lb;
+  if (base_l1) {
+    lb = safe_pow(sb, p);
+    if (p > 1.0f) lb = lb * safe_pow(fmaxf(d, 1.0f), 1.0f - p);
+  } else {
+    lb = safe_pow(sb, p * 0.5f);
+  }
+  return lb * kDeflate;
+}
+
 // Butterfly sum: every lane ends with the same bits (IEEE add commutes).
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

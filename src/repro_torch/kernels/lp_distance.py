@@ -1,8 +1,9 @@
 """Wrappers of the hand-written CUDA Lp kernels.
 
-`gather_lp` and `gather_lp_abandon` take the place of the Pallas kernels
-`gather_lp_kernel_call` and `gather_lp_abandon_kernel_call` of
-`repro.kernels.lp_distance`. For CUDA tensors each launches its kernel
+`pairwise_lp`, `gather_lp`, `gather_lp_abandon` and `gather_lp_screen`
+take the place of the Pallas kernels `pairwise_lp_kernel_call`,
+`gather_lp_kernel_call`, `gather_lp_abandon_kernel_call` and
+`gather_lp_screen_kernel_call` of `repro.kernels.lp_distance`. For CUDA tensors each launches its kernel
 (built at first use by `kernels._build`) on the current stream, or raises;
 for CPU tensors each runs its plain version from `kernels.ref`. Each keeps
 a count of its kernel launches in its `launches` attribute, so that a run
@@ -15,18 +16,24 @@ import torch
 
 from repro_torch.core.lp_ops import is_static_p
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import gather_lp_abandon_ref, gather_lp_ref
+from repro_torch.kernels.ref import (
+    gather_lp_abandon_ref,
+    gather_lp_ref,
+    gather_lp_screen_ref,
+    pairwise_lp_ref,
+)
+
+_WRAPPERS = ("pairwise_lp", "gather_lp", "gather_lp_abandon", "gather_lp_screen")
 
 
 def reset_launch_counts() -> None:
     """Sets every kernel's launch count to 0."""
-    gather_lp.launches = 0
-    gather_lp_abandon.launches = 0
+    for name in _WRAPPERS:
+        globals()[name].launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {"gather_lp": gather_lp.launches,
-            "gather_lp_abandon": gather_lp_abandon.launches}
+    return {name: globals()[name].launches for name in _WRAPPERS}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -58,6 +65,29 @@ def _stream() -> int:
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
+
+
+def pairwise_lp(q: torch.Tensor, x: torch.Tensor, p) -> torch.Tensor:
+    """Root-free all-pairs sum_j |q[b, j] - x[i, j]|^p -> (B, N) float32.
+
+    q (B, d) f32, x (N, d) f32, p a float or (B,) tensor. Rows under p = 2
+    take the product identity |q|^2 + |x|^2 - 2 q.x, clamped at 0.
+    """
+    if _on_cpu(q):
+        return pairwise_lp_ref(q, x, p)
+    b, d = q.shape
+    n = x.shape[0]
+    q = q.contiguous()
+    x = x.contiguous()
+    _check("q", q, torch.float32, (b, d), x.device)
+    _check("x", x, torch.float32, (n, d), q.device)
+    pv = _p_rows(p, b, q.device)
+    out = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    err = _build.launcher("pairwise_lp")(
+        q.data_ptr(), x.data_ptr(), pv.data_ptr(), out.data_ptr(), b, n, d, _stream())
+    pairwise_lp.launches += 1
+    _raise_on(err, "pairwise_lp")
+    return out
 
 
 def gather_lp(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor, p) -> torch.Tensor:
@@ -128,5 +158,53 @@ def gather_lp_abandon(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor,
     return out, nd
 
 
-gather_lp.launches = 0
-gather_lp_abandon.launches = 0
+def gather_lp_screen(q: torch.Tensor, ids: torch.Tensor, codes: torch.Tensor,
+                     scale: torch.Tensor, radius: torch.Tensor, thresh: torch.Tensor,
+                     sb: torch.Tensor, p, base_p: float,
+                     block_d: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compressed-band screen -> (keep (B, C) int32 0/1, nd (B, C) int32).
+
+    q (B, d) f32 in the band's coordinate order; codes (n, d) int8;
+    scale, radius (d,) f32; thresh (B,) f32 (-inf freezes the row, +inf
+    keeps every valid candidate); sb (B, C) f32 base-metric power sums (0
+    disables the bounds) in the metric named by base_p (1.0 or 2.0);
+    block_d must divide d. Padding never survives.
+    """
+    if _on_cpu(q):
+        keep, nd = gather_lp_screen_ref(q, ids, codes, scale, radius, thresh, sb, p,
+                                        base_p, block_d)
+        return keep.to(torch.int32), nd
+    b, d = q.shape
+    c = ids.shape[1]
+    n = codes.shape[0]
+    if base_p not in (1.0, 2.0):
+        raise ValueError(f"base_p must be 1.0 or 2.0, got {base_p}")
+    if block_d <= 0 or d % block_d:
+        raise ValueError(f"block_d={block_d} does not divide d={d}")
+    ids = ids.to(torch.int32).contiguous()
+    q = q.contiguous()
+    codes = codes.contiguous()
+    scale = scale.to(torch.float32).contiguous()
+    radius = radius.to(torch.float32).contiguous()
+    thresh = thresh.to(torch.float32).contiguous()
+    sb = sb.to(torch.float32).contiguous()
+    _check("q", q, torch.float32, (b, d), codes.device)
+    _check("codes", codes, torch.int8, (n, d), q.device)
+    _check("ids", ids, torch.int32, (b, c), q.device)
+    _check("scale", scale, torch.float32, (d,), q.device)
+    _check("radius", radius, torch.float32, (d,), q.device)
+    _check("thresh", thresh, torch.float32, (b,), q.device)
+    _check("sb", sb, torch.float32, (b, c), q.device)
+    pv = _p_rows(p, b, q.device)
+    keep = torch.empty((b, c), dtype=torch.int32, device=q.device)
+    nd = torch.empty((b, c), dtype=torch.int32, device=q.device)
+    err = _build.launcher("gather_lp_screen")(
+        ids.data_ptr(), q.data_ptr(), thresh.data_ptr(), sb.data_ptr(), codes.data_ptr(),
+        scale.data_ptr(), radius.data_ptr(), pv.data_ptr(), keep.data_ptr(), nd.data_ptr(),
+        b, c, n, d, block_d, 1 if base_p == 1.0 else 0, _stream())
+    gather_lp_screen.launches += 1
+    _raise_on(err, "gather_lp_screen")
+    return keep, nd
+
+
+reset_launch_counts()

@@ -1,4 +1,4 @@
-"""Exact-Lp candidate scoring for the query path.
+"""Exact-Lp scoring for the query path and the bulk builder.
 
 Counterpart of the dispatchers in `repro.kernels.ops`. The reference pads
 and tiles for the TPU's VMEM; here the kernels take any (B, C), so these
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.lp_ops import is_static_p, lp_root
-from repro_torch.core.metrics import as_p_vec, pairwise_lp
+from repro_torch.core.metrics import as_p_vec
 from repro_torch.kernels import lp_distance as _k
 
 
@@ -33,7 +33,7 @@ def lp_gather_distance(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor, p,
 
     ids (B, C): ids outside [0, n) are padding and score +inf. ids may also
     be 1-D (C,): every query scores the same rows, which are gathered once
-    and scored as all-pairs distances (plain PyTorch for now).
+    and scored by the pairwise kernel (p = 2 rows on the product identity).
     p: a Python float, or a (B,) tensor scoring row i under p[i].
     """
     p = _p_arg(p, q.shape[0], q.device)
@@ -41,10 +41,18 @@ def lp_gather_distance(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor, p,
         n = x.shape[0]
         ids = ids.long()
         valid = (ids >= 0) & (ids < n)
-        d = pairwise_lp(q, x[ids.clamp(0, n - 1)], p, root=False)
+        d = _k.pairwise_lp(q, x[ids.clamp(0, n - 1)], p)
         d = torch.where(valid[None, :], d, torch.inf)
     else:
         d = _k.gather_lp(q, ids, x, p)
+    return _root(d, p) if root else d
+
+
+def lp_pairwise_distance(q: torch.Tensor, x: torch.Tensor, p, root: bool = False):
+    """All-pairs Lp distances q (B, d) x x (N, d) -> (B, N) f32, through the
+    pairwise kernel. p: a float, or a (B,) tensor scoring row i under p[i]."""
+    p = _p_arg(p, q.shape[0], q.device)
+    d = _k.pairwise_lp(q, x, p)
     return _root(d, p) if root else d
 
 
@@ -73,3 +81,22 @@ def lp_gather_abandon(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor,
     bd = block_d or pick_abandon_block_d(q.shape[1])
     out, nd = _k.gather_lp_abandon(q, ids, x, thresh, sb, p, float(base_p), bd)
     return (_root(out, p) if root else out), nd
+
+
+def lp_gather_screen(q: torch.Tensor, ids: torch.Tensor, codes: torch.Tensor,
+                     scale: torch.Tensor, radius: torch.Tensor, thresh: torch.Tensor,
+                     sb: torch.Tensor, p, base_p: float = 1.0, block_d: int | None = None):
+    """Compressed-band candidate screen (DESIGN.md §10) -> (keep, nd).
+
+    q (B, d) in the band's coordinate order (Q[:, band.perm]); thresh (B,)
+    per-row bound in power-sum space (-inf screens out the row, +inf keeps
+    every valid candidate); sb (B, C) the candidates' base-metric power
+    sums (0 disables the bounds). keep (B, C) bool marks the candidates
+    whose f32 rows the exact rescore must gather; nd (B, C) int32 counts
+    the band dimensions scanned.
+    """
+    p = _p_arg(p, q.shape[0], q.device)
+    bd = block_d or pick_abandon_block_d(q.shape[1])
+    keep, nd = _k.gather_lp_screen(q, ids, codes, scale, radius, thresh, sb, p,
+                                   float(base_p), bd)
+    return keep.bool(), nd

@@ -31,6 +31,7 @@ from repro_torch.core import build as tbuild
 from repro_torch.core.datasets import PAPER_DATASETS
 from repro_torch.core.datasets import make_dataset as t_make_dataset
 from repro_torch.core.hnsw import GraphArrays, knn_search
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 VERIFY_DS = Path(__file__).resolve().parents[1] / "results/bench_cache/verify_ds_d96_n1500_q16.pkl"
 RTOL, ATOL = 1e-5, 1e-6

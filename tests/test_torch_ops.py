@@ -28,7 +28,8 @@ from repro_torch.core import lp_ops as tlp
 from repro_torch.core import metrics as tmet
 from repro_torch.kernels import _build, lp_distance
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.ref import gather_lp_abandon_ref, gather_lp_ref
+from repro_torch.kernels.ref import gather_lp_abandon_ref, gather_lp_ref, pairwise_lp_ref
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 P_GRID = [0.5, 0.8, 1.0, 1.25, 1.5, 2.0]
 RTOL, ATOL = 1e-5, 1e-6
@@ -191,6 +192,54 @@ def test_lp_gather_distance_shared_ids_matches_reference(p):
     _close(got, want)
 
 
+def _close_pairwise_norm(got, want, q, x, p):
+    """All-pairs power sums: rtol 1e-5, and for rows under p = 2 (the
+    product identity) an atol of 1e-5 * (|q|^2 + |x|^2) per entry."""
+    got, want = np.asarray(got), np.asarray(want)
+    l2 = np.broadcast_to(np.asarray(p, np.float32).reshape(-1, 1) == 2.0, want.shape)
+    _close(got[~l2], want[~l2])
+    norms = (q * q).sum(1)[:, None] + (x * x).sum(1)[None, :]
+    np.testing.assert_array_less(np.abs(got - want)[l2], (RTOL * norms + ATOL)[l2])
+
+
+@pytest.mark.parametrize("p", P_GRID + ["rows"])
+def test_pairwise_lp_matches_reference(p):
+    """The pairwise kernel's plain version and its dispatcher against the
+    reference's dispatch, including zero differences and p = 2 rows."""
+    rng = np.random.default_rng(9)
+    q = (rng.standard_normal((7, 48)) * 3).astype(np.float32)
+    x = (rng.standard_normal((33, 48)) * 3).astype(np.float32)
+    x[4] = q[2]
+    pt = torch.from_numpy(_p_rows(q.shape[0], seed=10)) if p == "rows" else p
+    pj = jnp.asarray(pt.numpy()) if p == "rows" else p
+    pv = pt.numpy() if p == "rows" else p
+    want = rops.lp_pairwise_distance(jnp.asarray(q), jnp.asarray(x), pj)
+    tq, tx = torch.from_numpy(q), torch.from_numpy(x)
+    _close_pairwise_norm(pairwise_lp_ref(tq, tx, pt).numpy(), want, q, x, pv)
+    _close_pairwise_norm(tops.lp_pairwise_distance(tq, tx, pt).numpy(), want, q, x, pv)
+    _close_pairwise(tops.lp_pairwise_distance(tq, tx, pt, root=True),
+                    rops.lp_pairwise_distance(jnp.asarray(q), jnp.asarray(x), pj, root=True),
+                    q, x, pv, True)
+
+
+def test_shared_ids_form_goes_through_the_pairwise_wrapper(monkeypatch):
+    """The 1-D ids form of lp_gather_distance scores through the pairwise
+    kernel's wrapper (on a CUDA tensor, the kernel), with padding at +inf."""
+    q, x, ids, _ = _gather_case(seed=4)
+    calls = []
+
+    def spy(qq, xx, p):
+        calls.append(tuple(xx.shape))
+        return pairwise_lp_ref(qq, xx, p)
+
+    monkeypatch.setattr(lp_distance, "pairwise_lp", spy)
+    row = torch.from_numpy(ids[1])
+    got = tops.lp_gather_distance(torch.from_numpy(q), row, torch.from_numpy(x), 0.5)
+    assert calls == [(row.numel(), x.shape[1])]
+    valid = ((row >= 0) & (row < x.shape[0])).numpy()
+    assert bool(torch.isinf(got[:, ~valid]).all()) and bool(torch.isfinite(got[:, valid]).all())
+
+
 def _thresholds(full, rng):
     """Per-row bounds around each row's 30th percentile, plus +-inf rows."""
     fin = np.where(np.isfinite(full), full, np.nan)
@@ -243,7 +292,10 @@ def test_wrappers_run_plain_versions_on_cpu_without_counting():
     want = gather_lp_abandon_ref(tq, ti, tx, thr, sb, 0.8, 1.0, 32)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
-    assert lp_distance.launch_counts() == {"gather_lp": 0, "gather_lp_abandon": 0}
+    np.testing.assert_array_equal(lp_distance.pairwise_lp(tq, tx, 1.25).numpy(),
+                                  pairwise_lp_ref(tq, tx, 1.25).numpy())
+    assert lp_distance.launch_counts() == {"pairwise_lp": 0, "gather_lp": 0,
+                                           "gather_lp_abandon": 0, "gather_lp_screen": 0}
 
 
 def test_wrappers_refuse_other_devices():

@@ -35,6 +35,7 @@ from repro_torch.convert import graph_from_reference
 from repro_torch.core.hnsw import GraphArrays, exact_topk, knn_search
 from repro_torch.core.uhnsw import UHNSW, UHNSWParams, modeled_query_cost, recall, \
     verify_candidates
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 VERIFY_DS = Path(__file__).resolve().parents[1] / "results/bench_cache/verify_ds_d96_n1500_q16.pkl"
 RTOL, ATOL = 1e-5, 1e-6
@@ -144,13 +145,15 @@ def test_verify_candidates_matches_reference(corpus, p, abandon):
                             torch.from_numpy(data), torch.from_numpy(pv) if p == "rows" else p,
                             K, 5, 0.92, cand_base=torch.from_numpy(np.array(base_d)),
                             base_p=1.0, abandon=abandon)
-    w_ids, w_d, w_np, w_it, w_frac = (np.asarray(a) for a in want[:5])
-    g_ids, g_d, g_np, g_it, g_frac = got
+    w_ids, w_d, w_np, w_it, w_frac, w_f32, w_band = (np.asarray(a) for a in want)
+    g_ids, g_d, g_np, g_it, g_frac, g_f32, g_band = got
     assert_ids_match(g_ids, w_ids, w_d)
     assert_close(g_d, w_d)
     np.testing.assert_array_equal(g_np.numpy(), w_np)
     assert g_it == int(w_it)
     np.testing.assert_array_equal(g_frac.numpy(), w_frac)
+    np.testing.assert_array_equal(g_f32.numpy(), w_f32)
+    np.testing.assert_array_equal(g_band.numpy(), w_band)
 
 
 @pytest.fixture(scope="module")
@@ -218,19 +221,21 @@ def test_staged_search_equals_search_and_unported_options_raise(corpus, indexes)
     np.testing.assert_array_equal(staged[0].numpy(), fused[0].numpy())
     np.testing.assert_array_equal(staged[1].numpy(), fused[1].numpy())
     assert port.dim == 96 and port.X.device.type == "cpu"
+    # the options that raised before they were ported now give the default ids
     for field in ("compressed_band", "energy_perm"):
         port.params = replace(UHNSWParams(t=T), **{field: True})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.search(queries, 0.8, K)
+        np.testing.assert_array_equal(port.search(queries, 0.8, K)[0].numpy(),
+                                      fused[0].numpy())
     port.params = UHNSWParams(t=T)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UHNSW.build(corpus[0], method="incremental", device="cpu")
+    with pytest.raises(ValueError, match="unknown build method"):
+        UHNSW.build(corpus[0], method="sequential", device="cpu")
 
 
 def test_uhnsw_build_on_cpu_searches(corpus):
     """The port's own build + search end to end (small m for speed)."""
     data, queries, _, _ = corpus
-    idx = UHNSW.build(data[:600], m=8, seed=0, params=UHNSWParams(t=50), device="cpu")
+    idx = UHNSW.build(data[:600], m=8, seed=0, params=UHNSWParams(t=50), method="bulk_host",
+                      device="cpu")
     assert idx.g1.metric_p == 1.0 and idx.g2.metric_p == 2.0 and idx.X.device.type == "cpu"
     ids, d, st = idx.search(queries, 0.8, K)
     truth = exact_topk(idx.X, torch.from_numpy(queries), 0.8, K)[0]
