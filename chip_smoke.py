@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 The corpus: the synthetic Sun corpus at its published size (78,306 x 512,
-256 queries, seed 0). Three paths, each driven with the kernels' launch
+256 queries, seed 0). Six paths, each driven with the kernels' launch
 counts set to 0 just before it and read just after:
 
   1. the query path (phase `search`): UHNSW.build(method="bulk_host", m = 16,
@@ -19,14 +19,28 @@ counts set to 0 just before it and read just after:
      `search_bulk`);
   3. the compressed band (phase `band`): the bulk index searched with
      compressed_band=True (gather_lp_screen, gather_lp), then with
-     energy_perm=True, at every p and the mixed batch.
+     energy_perm=True, at every p and the mixed batch;
+  4. the rowwise and fused top-k entry points (phase `kernels_rest`):
+     kernels.ops.lp_rowwise_distance and kernels.lp_topk.lp_topk on the
+     shared-pass index's 300 candidates a query (rowwise_lp, lp_topk),
+     with tie cases and a block of 257 candidates;
+  5. the sharded index (phase `sharded`): ShardedUHNSW.build(4 segments,
+     m = 16, method="bulk"), searched under the independent, two_phase and
+     round_robin policies at p in {0.5, 1.25, 2.0} and the mixed batch
+     (gather_lp, gather_lp_abandon);
+  6. the delta tier (phase `delta`): 512 fresh rows added to the sharded
+     index, each searched for with abandon on and off (gather_lp_abandon,
+     pairwise_lp on the delta scan), then compacted into a fifth segment.
 
 It builds the CUDA kernels with nvcc first, holds each kernel against its
 plain PyTorch version on the card at the paths' shapes, measures recall
 against a brute-force top-k and checks it against the same search with the
 plain versions, checks that every row of a mixed batch equals the scalar
-call at its p, and that the band and energy-ordered paths return the
-default path's ids. One JSON object per phase, with its seconds, goes to
+call at its p, that the band and energy-ordered paths return the default
+path's ids, that the sharded candidates are exact and that two_phase at
+thresh_rank = t gives the independent ids wherever their candidates agree,
+and that every inserted row is its own top-1 in the delta tier and, after
+compaction, wherever the graphs found it. One JSON object per phase, with its seconds, goes to
 stdout; then the card's name and power limit, the kernel summary, and last
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0).
 Without a CUDA device it exits with code 2 before doing anything.
@@ -256,7 +270,7 @@ def graph_stats(index, Q, truth) -> dict:
         deg = float((adj0 < g.n).sum(1).float().mean())
         check(g.n == index.X.shape[0] and adj0.shape == (g.n, 2 * M), f"{name} shape")
         check(deg > M, f"{name} mean level-0 degree {deg}")
-        c = index.search_stage_candidates(Q, b)
+        c = index.search_stage_candidates(Q, b, K)
         hits = (c.ids[:, :K, None] == truth[b][:, None, :]).any(-1).sum(1)
         out[name] = {"max_level": g.max_level, "mean_l0_degree": deg,
                      "index_mib": g.index_size_bytes() / 2**20,
@@ -318,7 +332,7 @@ def phase_kernels(index, Q):
     n, d = X.shape
     kappa = K // 2
     bd = pick_abandon_block_d(d)
-    cands = {b: index.search_stage_candidates(Q, b) for b in (1.0, 2.0)}
+    cands = {b: index.search_stage_candidates(Q, b, K) for b in (1.0, 2.0)}
     p_mix = torch.tensor([P_SCALAR[i % 4] for i in range(Q.shape[0])],
                          dtype=torch.float32, device=X.device)
     cases = [(str(p), p, base_metric_for(p)) for p in P_SCALAR] + [("mixed", p_mix, 1.0)]
@@ -392,13 +406,13 @@ def mixed_p(b: int) -> np.ndarray:
     return np.array([P_SCALAR[i % 4] for i in range(b)], dtype=np.float32)
 
 
-def run_searches(index, Q) -> dict:
-    """Every scalar p, then the mixed batch: {p or "mixed": (ids, dists,
-    stats, seconds, launches of that batch)}."""
+def run_searches(index, Q, ps=P_SCALAR) -> dict:
+    """Every scalar p of `ps`, then the mixed batch: {p or "mixed": (ids,
+    dists, stats, seconds, launches of that batch)}."""
     from repro_torch.kernels import lp_distance as kd
 
     results = {}
-    for p in (*P_SCALAR, "mixed"):
+    for p in (*ps, "mixed"):
         before = kd.launch_counts()
         out = _search(index, Q, mixed_p(Q.shape[0]) if p == "mixed" else p)
         results[p] = (*out, {k: v - before[k] for k, v in kd.launch_counts().items()})
@@ -429,7 +443,7 @@ def phase_search(index, Q, truth, label: str):
     from repro_torch.core.uhnsw import recall
 
     t0 = _now()
-    cands = {b: index.search_stage_candidates(Q, b) for b in (1.0, 2.0)}
+    cands = {b: index.search_stage_candidates(Q, b, K) for b in (1.0, 2.0)}
     _search(index, Q, 0.8)                                    # warm-up, not counted
     results, counts = counted(run_searches, index, Q)
     with plain_versions():
@@ -671,7 +685,7 @@ def phase_kernels_bulk(index, Q):
     Qp = Q[:, band.perm].contiguous()
     kappa = K // 2
     bd = pick_abandon_block_d(d)
-    cands = {b: index.search_stage_candidates(Q, b) for b in (1.0, 2.0)}
+    cands = {b: index.search_stage_candidates(Q, b, K) for b in (1.0, 2.0)}
     cases = [(str(p), p, base_metric_for(p)) for p in P_SCALAR] + [("mixed", p_mix, 1.0)]
     for label, p, base in cases:
         c = cands[base]
@@ -758,6 +772,336 @@ def phase_band(index, Q, default_results):
     return band_counts
 
 
+def topk_errors(got_d, got_i, want_d, want_i, all_d, k: int, label: str) -> dict:
+    """lp_topk against its plain version: dists within RTOL; ids equal but
+    where candidates tie at the k-th distance: every id that only one of
+    the two returns must lie within RTOL of the k-th smallest of the
+    row's root-free plain distances `all_d`."""
+    rel, abs_err, mismatch = rel_err(got_d, want_d)
+    check(mismatch == 0 and rel <= RTOL, f"lp_topk {label}: rel {rel} mismatch {mismatch}")
+    differ = (got_i.sort(1).values != want_i.sort(1).values).any(1)
+    kth = all_d.sort(1).values[:, k - 1].double()
+    for row in differ.nonzero()[:, 0].tolist():
+        extra = sorted(set(got_i[row].tolist()) ^ set(want_i[row].tolist()))
+        gap = (all_d[row, extra].double() - kth[row]).abs()
+        check(bool((gap <= RTOL * kth[row].abs()).all()),
+              f"lp_topk {label}: ids differ away from a k-th tie in row {row}")
+    return {"max_rel_err": rel, "max_abs_err": abs_err, "rows_differ_at_tie": int(differ.sum())}
+
+
+def phase_kernels_rest(index, Q):
+    """rowwise_lp and lp_topk through their entry points at the shared-pass
+    index's candidates (t = 300): c = X[candidate ids], (256, 300, 512).
+    The entry-point calls are the counted path; each output is then held
+    against its plain version, and each kernel timed beside its bound."""
+    import torch
+
+    from repro_torch.kernels import lp_distance as kd
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lp_topk import lp_topk
+    from repro_torch.kernels.ops import lp_rowwise_distance
+
+    t0 = _now()
+    X = index.X
+    ids = index.search_stage_candidates(Q, 1.0, K).ids.long()
+    check(bool((ids >= 0).all()), "kernels_rest: padding among the candidates")
+    c = X[ids].contiguous()                                  # (B, t, d)
+    b, t, d = c.shape
+    p_mix = torch.from_numpy(mixed_p(b)).to(X.device)
+    cases = [(str(p), p) for p in P_SCALAR] + [("mixed", p_mix)]
+    topk_cases = [(p, k) for p in P_SCALAR for k in (10, 50)]
+
+    def path():
+        return ({label: lp_rowwise_distance(Q, c, p, root=False) for label, p in cases},
+                {(p, k): lp_topk(Q, c, p, k) for p, k in topk_cases})
+
+    (rows_out, topk_out), launched = counted(path)
+    check(launched["rowwise_lp"] == len(cases) and launched["lp_topk"] == len(topk_cases),
+          f"kernels_rest: entry points did not launch their kernels: {launched}")
+    out = {"rowwise_lp": [], "lp_topk": []}
+    worst = {"rowwise_lp": 0.0, "lp_topk": 0.0}
+    plain_d = {}
+    for label, p in cases:
+        want = ref.rowwise_lp_ref(Q, c, p)
+        plain_d[label] = want
+        r, a, mis = rel_err(rows_out[label], want)
+        check(mis == 0 and r <= RTOL, f"rowwise_lp p={label}: rel {r} mismatch {mis}")
+        worst["rowwise_lp"] = max(worst["rowwise_lp"], a)
+        ops = float(np.broadcast_to(ops_per_element(p), (b,)).sum()) * t * d
+        bnd = bound(4 * (c.numel() + Q.numel() + b * t + b), ops)
+        row = {"p": label, "shape": [b, t, d], "max_rel_err": r, "max_abs_err": a,
+               "ms": median_ms(lambda: kd.rowwise_lp(Q, c, p), reps=20),
+               "plain_ms": median_ms(lambda: ref.rowwise_lp_ref(Q, c, p), reps=5),
+               "bound_ms": bnd[0], "bound_by": bnd[1],
+               "library_ms": None if label == "mixed" else median_ms(
+                   lambda: torch.cdist(Q[:, None], c, p=float(p)), reps=20)}
+        out["rowwise_lp"].append(row)
+        emit({"phase": "kernels_rest", "kernel": "rowwise_lp", **row})
+    for p, k in topk_cases:
+        got_d, got_i = topk_out[(p, k)]
+        want_d, want_i = ref.lp_topk_ref(Q, c, p, k)
+        errs = topk_errors(got_d, got_i, want_d, want_i, plain_d[str(p)], k, f"p={p} k={k}")
+        worst["lp_topk"] = max(worst["lp_topk"], errs["max_abs_err"])
+        row = {"p": p, "k": k, "shape": [b, t, d], **errs}
+        if k == K:
+            ope = float(ops_per_element(p)[0])
+            bnd = bound(4 * (c.numel() + Q.numel() + 2 * b * k + b), ope * c.numel())
+            row.update({"ms": median_ms(lambda: lp_topk(Q, c, p, k), reps=20),
+                        "plain_ms": median_ms(lambda: ref.lp_topk_ref(Q, c, p, k), reps=5),
+                        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None})
+        out["lp_topk"].append(row)
+        emit({"phase": "kernels_rest", "kernel": "lp_topk", **row})
+    # ties: every candidate row again at index + t; a copy may come back
+    # only after its original (the lower index wins the tie). Against the
+    # plain version, as above: distinct rows that nearly tie at the k-th
+    # distance may still swap.
+    twin = torch.cat([c, c], 1)
+    for p in P_SCALAR:
+        twin_d = ref.rowwise_lp_ref(Q, twin, p)
+        for k in (11, 50):
+            got_d, got_i = lp_topk(Q, twin, p, k)
+            want_d, want_i = ref.lp_topk_ref(Q, twin, p, k)
+            topk_errors(got_d, got_i, want_d, want_i, twin_d, k, f"tie case p={p} k={k}")
+            for slot in range(k):
+                copy = got_i[:, slot] >= t
+                first = (got_i[:, :slot] == (got_i[:, slot] - t)[:, None]).any(1)
+                check(bool((~copy | first).all()),
+                      f"lp_topk tie case p={p} k={k}: a copy came before its original")
+    # a block of 257 candidates: not a whole tile
+    c257 = c[:, :257].contiguous()
+    for p in P_SCALAR:
+        got_d, got_i = lp_topk(Q, c257, p, K)
+        want_d, want_i = ref.lp_topk_ref(Q, c257, p, K)
+        topk_errors(got_d, got_i, want_d, want_i, ref.rowwise_lp_ref(Q, c257, p), K,
+                    f"C=257 p={p}")
+    emit({"phase": "kernels_rest", "seconds": _now() - t0, "launches": launched,
+          "tie_cases": "passed", "c257_cases": "passed"})
+    del c, twin
+    return out, worst, launched
+
+
+SHARDED_P = (0.5, 1.25, 2.0)
+SEGMENTS = 4
+DELTA_ROWS = 512
+DELTA_CAPACITY = 1024
+
+
+def check_candidates(idx, Q, base: float, label: str) -> dict:
+    """A merged candidate list: ids unique in each row, -1 padding only at
+    the end, distances ascending, and each real id at its exact base
+    distance (within RTOL: the beam sums in other shapes)."""
+    import torch
+
+    from repro_torch.core.metrics import lp_distance
+
+    c = idx.search_stage_candidates(Q, base, K)
+    ids, d = c.ids.long(), c.base_dists
+    real = ids >= 0
+    check(bool((real[:, :-1] | ~real[:, 1:]).all()), f"{label}: padding before a real id")
+    srt = ids.sort(1).values
+    check(bool(((srt[:, 1:] != srt[:, :-1]) | (srt[:, 1:] < 0)).all()), f"{label}: repeated id")
+    check(bool((d[:, 1:] >= d[:, :-1]).all()), f"{label}: distances not ascending")
+    exact = lp_distance(Q[:, None, :], idx.X[ids.clamp(min=0)], base, root=False)
+    r, a, mis = rel_err(torch.where(real, d, torch.inf), torch.where(real, exact, torch.inf))
+    check(mis == 0 and r <= RTOL, f"{label}: base distances off by {r} (mismatch {mis})")
+    return {"real_per_row_min": int(real.sum(1).min()), "max_rel_err": r}
+
+
+def phase_sharded(X, Q, truth, mono_results):
+    """ShardedUHNSW.build(X, 4 segments, m = 16, method="bulk") searched
+    under each policy at SHARDED_P and the mixed batch, counted: recall@10,
+    N_b with its probe and spill shares, N_p, hops, seconds per batch and
+    launches, beside the monolithic shared-pass index of the same run.
+    Checks: every policy's merged candidates are real, unique, ascending
+    and at their exact base distances; the independent policy's ids with
+    the kernels equal its ids with the plain versions at p = 0.5 and on the
+    mixed batch. two_phase at thresh_rank = t is measured against the
+    independent policy (rows equal), and must equal it wherever their
+    merged candidate lists are equal."""
+    import torch
+
+    from repro_torch.core.metrics import base_metric_for
+    from repro_torch.core.uhnsw import recall
+    from repro_torch.index import ShardedParams, ShardedUHNSW
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = _now()
+    idx, build_launched = counted(ShardedUHNSW.build, X, num_segments=SEGMENTS, m=M,
+                                  method="bulk", seed=0, delta_capacity=DELTA_CAPACITY)
+    build_seconds = _now() - t0
+    check(build_launched["pairwise_lp"] > 0 and build_launched["gather_lp"] > 0,
+          f"sharded build did not launch its kernels: {build_launched}")
+    sizes = [g.n for g in idx.segments.graphs1]
+    check(sum(sizes) == X.shape[0] and idx.num_segments == SEGMENTS, f"segments {sizes}")
+    policies = {"independent": ShardedParams(),
+                "two_phase": ShardedParams(policy="two_phase", probe=1),
+                "round_robin": ShardedParams(policy="round_robin")}
+    per_policy, results = {}, {}
+    counts = None
+    for name, sp in policies.items():
+        idx.sharded_params = sp
+        res, launched = counted(run_searches, idx, Q, SHARDED_P)
+        results[name] = res
+        if name == "independent":
+            counts = launched
+        per_p = {}
+        for p in (*SHARDED_P, "mixed"):
+            ids, dists, st, secs, l_p = res[p]
+            tr = mixed_truth(truth, Q.shape[0]) if p == "mixed" else truth[p]
+            n_b = st.n_b.double()
+            nb_pr, nb_sp = st.phase_n_b()
+            check(bool(dists.isfinite().all()) and ids.shape == (Q.shape[0], K),
+                  f"sharded {name}: output at p={p}")
+            check(bool((torch.as_tensor(nb_pr) + torch.as_tensor(nb_sp) == st.n_b).all()),
+                  f"sharded {name}: n_b != probe + spill at p={p}")
+            per_p[str(p)] = {
+                "recall@10": recall(ids, tr),
+                "recall@10_monolithic": recall(mono_results[p][0], tr),
+                "mean_n_b": float(n_b.mean()),
+                "n_b_probe_share": float(torch.as_tensor(nb_pr).double().sum() / n_b.sum()),
+                "n_b_spill_share": float(torch.as_tensor(nb_sp).double().sum() / n_b.sum()),
+                "mean_n_b_monolithic": float(mono_results[p][2].n_b.float().mean()),
+                "mean_n_p": float(st.n_p.float().mean()),
+                "mean_hops": float(st.hops.float().mean()),
+                "batch_seconds": secs, "launches": l_p}
+        per_policy[name] = {"per_p": per_p, "launches": launched}
+        emit({"phase": "sharded", "policy": name, **per_policy[name]})
+    check(counts["gather_lp"] > 0 and counts["gather_lp_abandon"] > 0,
+          f"sharded: kernels not launched on the query path: {counts}")
+    # every policy's merged candidates: real ids, unique and ascending, each
+    # at its exact base distance (the fold's id offsets, on the card)
+    cand_checks = {}
+    for name, sp in policies.items():
+        idx.sharded_params = sp
+        for base in (1.0, 2.0):
+            label = f"{name} base {base}"
+            cand_checks[label] = check_candidates(idx, Q, base, label)
+    # two_phase at the loosest admissible rank (thresh_rank = t): the bound
+    # prunes nothing of the independent merged top-t, but a spill beam that
+    # strands above the bound (its level-0 greedy walk stops at a local
+    # minimum above it, and the cut admits no neighbour) finds nothing. So
+    # the rows are counted, not required to be equal; where the merged
+    # candidate lists are equal the final ids must be too.
+    idx.sharded_params = ShardedParams(policy="two_phase", probe=1, thresh_rank=idx.params.t)
+    safe = run_searches(idx, Q, SHARDED_P)
+    rank_t = {}
+    for p in (*SHARDED_P, "mixed"):
+        ids_i, ids_s = results["independent"][p][0], safe[p][0]
+        rank_t[str(p)] = {"rows_ids_equal_independent": int((ids_s == ids_i).all(1).sum()),
+                          "mean_n_b": float(safe[p][2].n_b.float().mean()),
+                          "recall@10": recall(ids_s, mixed_truth(truth, Q.shape[0])
+                                              if p == "mixed" else truth[p])}
+    for base in (1.0, 2.0):
+        idx.sharded_params = policies["independent"]
+        c_i = idx.search_stage_candidates(Q, base, K)
+        idx.sharded_params = ShardedParams(policy="two_phase", probe=1, thresh_rank=idx.params.t)
+        c_s = idx.search_stage_candidates(Q, base, K)
+        same = (c_i.ids == c_s.ids).all(1)
+        rank_t[f"rows_candidates_equal_base_{base}"] = int(same.sum())
+        for p in (*SHARDED_P, "mixed"):
+            if p != "mixed" and base_metric_for(p) != base:
+                continue
+            rows = same if p != "mixed" else same & torch.from_numpy(
+                base_metric_for(mixed_p(Q.shape[0])) == base).to(same.device)
+            check(bool((safe[p][0][rows] == results["independent"][p][0][rows]).all()),
+                  f"sharded: equal candidates gave other ids at p={p}")
+    idx.sharded_params = policies["independent"]
+    with plain_versions():
+        plain = {p: _search(idx, Q, mixed_p(Q.shape[0]) if p == "mixed" else p)
+                 for p in (0.5, "mixed")}
+    for p, out in plain.items():
+        check(bool((out[0] == results["independent"][p][0]).all()),
+              f"sharded: independent ids with the kernels differ from the plain versions at p={p}")
+    emit({"phase": "sharded", "seconds": _now() - t0, "build_seconds": build_seconds,
+          "segment_sizes": sizes, "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
+          "build_launches": build_launched, "candidate_checks": cand_checks,
+          "two_phase_thresh_rank_t": rank_t, "ids_equal_plain": True})
+    return idx, counts
+
+
+def phase_delta(idx):
+    """Streaming inserts into the sharded index: DELTA_ROWS fresh rows of
+    the corpus generator (the same mixture, not corpus members) go in with
+    add(); each, searched for at every p, must come back at rank 0, with
+    abandon on (the threshold scan, gather_lp_abandon; p = 2 keeps the
+    pairwise form) and off (pairwise_lp). The delta scan's launches are
+    each search's launches less those of the same search with the buffer
+    empty. Then the buffer is filled to DELTA_CAPACITY, which compacts it
+    into a fifth segment (shared-pass build); the graphs now find the rows,
+    so each must come back at rank 0 wherever its beam found it among the
+    merged candidates, and the misses are counted."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.core.datasets import make_dataset
+    from repro_torch.core.metrics import base_metric_for
+    from repro_torch.index import ShardedParams
+
+    t0 = _now()
+    dev = idx.X.device
+    fresh = make_dataset("sun", n=N_SUN, n_queries=DELTA_CAPACITY, seed=0).queries
+    rows = torch.from_numpy(fresh[:DELTA_ROWS]).to(dev)
+    n0 = idx.n
+    idx.sharded_params = ShardedParams()
+    prm0 = idx.params
+
+    def searches(abandon: bool):
+        idx.params = replace(prm0, abandon=abandon)
+        out = counted(run_searches, idx, rows, SHARDED_P)
+        idx.params = prm0
+        return out
+
+    empty = {ab: searches(ab)[1] for ab in (True, False)}
+    gids = torch.tensor([idx.add(v) for v in fresh[:DELTA_ROWS]], dtype=torch.int32, device=dev)
+    check(len(idx.delta) == DELTA_ROWS and int(gids[0]) == n0, "delta adds")
+    report, delta_launches = {}, {}
+    for ab in (True, False):
+        res, launched = searches(ab)
+        per_p = {}
+        for p in (*SHARDED_P, "mixed"):
+            ids, dists, st, secs, _ = res[p]
+            check(bool((ids[:, 0] == gids).all()),
+                  f"delta (abandon={ab}): an inserted row is not its own top-1 at p={p}")
+            per_p[str(p)] = {"batch_seconds": secs, "mean_n_p": float(st.n_p.float().mean()),
+                             "n_dim_frac": float(torch.as_tensor(st.n_dim_frac).float().mean())}
+        delta_launches[ab] = {k: launched[k] - empty[ab][k] for k in launched}
+        report[f"abandon_{ab}"] = {"per_p": per_p, "delta_scan_launches": delta_launches[ab]}
+    check(delta_launches[True]["gather_lp_abandon"] > 0,
+          f"delta scan never launched gather_lp_abandon: {delta_launches}")
+    check(delta_launches[True]["pairwise_lp"] > 0 and delta_launches[False]["pairwise_lp"] > 0,
+          f"delta scan never launched pairwise_lp: {delta_launches}")
+    t1 = _now()
+    for v in fresh[DELTA_ROWS:]:
+        idx.add(v)
+    compact_seconds = _now() - t1
+    check(idx.num_segments == SEGMENTS + 1 and len(idx.delta) == 0
+          and idx.n == n0 + DELTA_CAPACITY, "compaction into a fifth segment")
+    res, launched = counted(run_searches, idx, rows, SHARDED_P)
+    # now the rows are found by the fifth segment's graphs, an approximate
+    # search: a row must come back at rank 0 wherever its own id is among
+    # its merged base-metric candidates, and the rows whose beam missed
+    # them are counted
+    in_cands = {b: (idx.search_stage_candidates(rows, b, K).ids == gids[:, None]).any(1)
+                for b in (1.0, 2.0)}
+    row_base = torch.from_numpy(base_metric_for(mixed_p(DELTA_ROWS))).to(dev)
+    post = {}
+    for p in (*SHARDED_P, "mixed"):
+        ids, _, st, secs, _ = res[p]
+        found = in_cands[base_metric_for(p)] if p != "mixed" else torch.where(
+            row_base == 1.0, in_cands[1.0], in_cands[2.0])
+        at0 = ids[:, 0] == gids
+        check(bool((at0 | ~found).all()),
+              f"delta: a row among its own candidates is not its top-1 after compaction at p={p}")
+        post[str(p)] = {"rows_at_rank_0": int(at0.sum()), "rows_in_candidates": int(found.sum()),
+                        "batch_seconds": secs, "mean_n_b": float(st.n_b.float().mean())}
+    emit({"phase": "delta", "seconds": _now() - t0, "rows": DELTA_ROWS, **report,
+          "fill_and_compact_seconds": compact_seconds,
+          "segment_sizes": [g.n for g in idx.segments.graphs1], "after_compaction": post,
+          "launches_after_compaction": launched})
+    return delta_launches
+
+
 def main() -> int:
     import torch
 
@@ -784,6 +1128,9 @@ def main() -> int:
     bulk_results, _ = phase_search(bulk_index, Q, truth, "search_bulk")
     phase_mixed(bulk_results, "mixed_bulk")
     band_counts = phase_band(bulk_index, Q, bulk_results)
+    rest_rows, worst_rest, rest_counts = phase_kernels_rest(bulk_index, Q)
+    sharded_index, _ = phase_sharded(bulk_index.X, Q, truth, bulk_results)
+    phase_delta(sharded_index)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -791,16 +1138,21 @@ def main() -> int:
     mix_row = kernel_rows[-1]
     rows = {"gather_lp": mix_row["gather_lp"], "gather_lp_abandon": mix_row["gather_lp_abandon"],
             "pairwise_lp": bulk_rows["pairwise_lp"][0],
-            "gather_lp_screen": bulk_rows["gather_lp_screen"][-1]}
+            "gather_lp_screen": bulk_rows["gather_lp_screen"][-1],
+            "rowwise_lp": next(r for r in rest_rows["rowwise_lp"] if r["p"] == "1.25"),
+            "lp_topk": next(r for r in rest_rows["lp_topk"] if r["p"] == 1.25 and r["k"] == K)}
     launches = {"gather_lp": counts["gather_lp"], "gather_lp_abandon": counts["gather_lp_abandon"],
                 "pairwise_lp": build_counts["pairwise_lp"],
-                "gather_lp_screen": band_counts["gather_lp_screen"]}
-    worst = {**worst, **worst_bulk}
+                "gather_lp_screen": band_counts["gather_lp_screen"],
+                "rowwise_lp": rest_counts["rowwise_lp"], "lp_topk": rest_counts["lp_topk"]}
+    worst = {**worst, **worst_bulk, **worst_rest}
     kernels = []
     for name, replaces in (("gather_lp", "src/repro/kernels/lp_distance.py:384"),
                            ("gather_lp_abandon", "src/repro/kernels/lp_distance.py:560"),
                            ("pairwise_lp", "src/repro/kernels/lp_distance.py:136"),
-                           ("gather_lp_screen", "src/repro/kernels/lp_distance.py:761")):
+                           ("gather_lp_screen", "src/repro/kernels/lp_distance.py:761"),
+                           ("rowwise_lp", "src/repro/kernels/lp_distance.py:240"),
+                           ("lp_topk", "src/repro/kernels/lp_topk.py:60")):
         r = rows[name]
         check(launches[name] > 0, f"{name} launched no time on its path")
         kernels.append({"name": name, "route": "cuda",

@@ -27,7 +27,8 @@ class GraphArrays:
 
     adj0 (n, m0) int64 level-0 neighbour ids; upper_adj[l-1] (n_l, m) int64
     global ids of level l; upper_g2l[l-1] (n,) int64 global -> local row of
-    level l (-1 when absent); entry () int64.
+    level l (-1 when absent); entry () int64, or (B,) int64 with one entry
+    per query row (the folded segment stack of `index.sharded`).
     """
 
     def __init__(self, adj0, upper_adj, upper_g2l, entry, n: int, metric_p: float):

@@ -37,7 +37,6 @@ from repro_torch.core.build import HNSWGraph, build_hnsw, build_hnsw_bulk
 from repro_torch.core.bulk_build import build_bulk_pair
 from repro_torch.core.hnsw import GraphArrays, knn_search
 from repro_torch.core.lp_ops import is_static_p, lp_root
-from repro_torch.index.compressed import build_band, energy_order
 from repro_torch.kernels.ops import lp_gather_abandon, lp_gather_distance, lp_gather_screen
 
 
@@ -79,6 +78,18 @@ class CandidateSet(NamedTuple):
     n_b: torch.Tensor         # (B,) base-metric evaluation counts (Eq. 1)
     hops: torch.Tensor        # (B,) level-0 loop trips
     base_p: float             # base metric of the candidates (1.0 = G1, 2.0 = G2)
+    # cross-segment phase split (the sharded index's two_phase / round_robin
+    # policies): probe = evaluations without a bound, spill = evaluations
+    # under an inherited pruning bound; n_b == n_b_probe + n_b_spill. A
+    # monolithic or independent search is all probe.
+    n_b_probe: torch.Tensor | None = None   # (B,); None means n_b
+    n_b_spill: torch.Tensor | float = 0.0
+    n_cand_spill: torch.Tensor | float = 0.0  # (B,) spill-phase survivors
+    # in the merged candidate list
+    # degraded-coverage serving: the sharded index's NaN/inf guard raises a
+    # row's flag where it masked a non-finite base distance
+    poisoned: torch.Tensor | float = 0.0
+    coverage_frac: float = 1.0  # served share of the corpus (host float)
 
 
 class SearchStats(NamedTuple):
@@ -90,12 +101,36 @@ class SearchStats(NamedTuple):
     n_dim_frac: torch.Tensor | float = 1.0  # (B,) share of the verification
     # dimension-work actually scanned (1.0 on the full-dimension paths),
     # counted over rows that had not converged, like N_p
+    # cross-segment phase split (sharded index): n_b == n_b_probe +
+    # n_b_spill; n_p_probe + n_p_spill is the graph-verify share of n_p
+    # (the delta tier's exact scans are neither phase). None means "all
+    # probe": n_b, n_p.
+    n_b_probe: torch.Tensor | float | None = None
+    n_b_spill: torch.Tensor | float = 0.0
+    n_p_probe: torch.Tensor | float | None = None
+    n_p_spill: torch.Tensor | float = 0.0
     n_f32_rows_frac: torch.Tensor | float = 1.0  # (B,) share of the verified
     # candidates whose f32 rows were gathered: below 1 only on the two-band
     # path, where f32 bytes = n_f32_rows_frac * n_p * 4d
     n_band_frac: torch.Tensor | float = 0.0  # (B,) int8 band dimensions the
     # screen scanned, over n_p * d (0 when no band is in play); bytes against
     # the f32-only path = n_f32_rows_frac + n_band_frac / 4
+    # degraded-coverage serving (sharded index): the exact served share of
+    # the corpus, and the NaN/inf guard's per-row flag. A monolithic search
+    # reports 1.0, False and 0.
+    coverage_frac: float = 1.0
+    degraded: bool = False  # coverage_frac < 1.0
+    poisoned: torch.Tensor | float = 0.0
+
+    def phase_n_b(self):
+        """(probe, spill) N_b split with the None default resolved."""
+        probe = self.n_b if self.n_b_probe is None else self.n_b_probe
+        return probe, self.n_b_spill
+
+    def phase_n_p(self):
+        """(probe, spill) N_p split with the None default resolved."""
+        probe = self.n_p if self.n_p_probe is None else self.n_p_probe
+        return probe, self.n_p_spill
 
 
 def _sort_by_dist(d: torch.Tensor, ids: torch.Tensor):
@@ -298,9 +333,11 @@ def two_way_mixed_search(Q, p, k: int, cutoff: float, search_base_vec):
 
     search_base_vec(Q_sub (B', d), p_sub (B',) numpy f32, k, base_p) returns
     (ids, dists, n_p, iters, n_b, hops, n_dim_frac, n_f32_rows_frac,
-    n_band_frac) for one side. Returns
-    (ids (B, k), dists (B, k), SearchStats) with stats.base_p the (B,) host
-    array of base metrics.
+    n_band_frac) for one side, optionally followed by the phase split
+    (n_b_probe, n_b_spill, n_p_probe, n_p_spill), which the sharded index
+    appends (absent: all probe), and a 14th element, the per-row poisoned
+    flag (absent: all clean). Returns (ids (B, k), dists (B, k), SearchStats)
+    with stats.base_p the (B,) host array of base metrics.
     """
     b = Q.shape[0]
     if torch.is_tensor(p):
@@ -324,22 +361,29 @@ def two_way_mixed_search(Q, p, k: int, cutoff: float, search_base_vec):
         sel = np.flatnonzero(base == base_p)
         if sel.size == 0:
             continue
-        s_ids, s_dists, s_np, s_it, s_nb, s_hops, s_frac, s_f32, s_band = search_base_vec(
-            Q[torch.from_numpy(sel).to(dev)], p_arr[sel], k, base_p)
+        res = search_base_vec(Q[torch.from_numpy(sel).to(dev)], p_arr[sel], k, base_p)
+        s_ids, s_dists, s_np, s_it, s_nb, s_hops, s_frac, s_f32, s_band = res[:9]
+        if len(res) > 9:
+            phases = tuple(res[9:13])
+        else:
+            phases = (s_nb, torch.zeros_like(s_nb), s_np, torch.zeros_like(s_np))
+        pois = res[13] if len(res) > 13 else torch.zeros_like(s_frac)
         sels.append(sel)
-        parts.append((s_ids, s_dists, s_np, s_nb, s_hops, s_frac, s_f32, s_band))
+        parts.append((s_ids, s_dists, s_np, s_nb, s_hops, s_frac, s_f32, s_band, *phases,
+                      pois))
         iters = max(iters, int(s_it))
     if len(parts) == 1:
-        ids, dists, n_p, n_b, hops, frac, f32f, bandf = parts[0]
+        cols = parts[0]
     else:
         inv = np.empty(b, np.int64)
         inv[np.concatenate(sels)] = np.arange(b)
         inv = torch.from_numpy(inv).to(dev)
-        ids, dists, n_p, n_b, hops, frac, f32f, bandf = (
-            torch.cat(xs, 0)[inv] for xs in zip(*parts))
+        cols = tuple(torch.cat(xs, 0)[inv] for xs in zip(*parts))
+    ids, dists, n_p, n_b, hops, frac, f32f, bandf, nb_pr, nb_sp, np_pr, np_sp, pois = cols
     return ids, dists, SearchStats(n_b=n_b, n_p=n_p, iterations=iters, base_p=base,
-                                   hops=hops, n_dim_frac=frac, n_f32_rows_frac=f32f,
-                                   n_band_frac=bandf)
+                                   hops=hops, n_dim_frac=frac, n_b_probe=nb_pr,
+                                   n_b_spill=nb_sp, n_p_probe=np_pr, n_p_spill=np_sp,
+                                   n_f32_rows_frac=f32f, n_band_frac=bandf, poisoned=pois)
 
 
 def modeled_query_cost(stats: SearchStats, p, d: int) -> dict:
@@ -393,12 +437,17 @@ class UHNSW:
     def compressed_band(self):
         """The int8 `CompressedBand` over X, built at first use."""
         if self._band is None:
+            # imported here: repro_torch.index imports this module
+            from repro_torch.index.compressed import build_band
+
             self._band = build_band(self.X)
         return self._band
 
     def _scan_view(self):
         """(x_scan, perm): the energy-ordered corpus view for energy_perm."""
         if self._scan_cache is None:
+            from repro_torch.index.compressed import energy_order
+
             perm = torch.from_numpy(energy_order(self.X).astype(np.int64)).to(self.X.device)
             self._scan_cache = (self.X[:, perm].contiguous(), perm)
         return self._scan_cache
@@ -478,12 +527,17 @@ class UHNSW:
         Q = self._queries(Q)
         if is_static_p(p):
             _, base_p = self.base_graph_for(float(p))
-            cands = self.search_stage_candidates(Q, base_p)
+            cands = self.search_stage_candidates(Q, base_p, k)
             return self.search_stage_finish(Q, cands, float(p), k)
         return two_way_mixed_search(Q, p, k, self.params.cutoff, self._search_base_vec)
 
-    def search_stage_candidates(self, Q, base_p: float) -> CandidateSet:
-        """Stage 1 of 2: base-metric candidate generation (Alg. 1 lines 1-6)."""
+    def search_stage_candidates(self, Q, base_p: float, k: int | None = None) -> CandidateSet:
+        """Stage 1 of 2: base-metric candidate generation (Alg. 1 lines 1-6).
+
+        k is taken for the signature of `ShardedUHNSW.search_stage_candidates`,
+        which sizes its pruning bound with it; one graph has no use for it.
+        """
+        del k
         prm = self.params
         Q = self._queries(Q)
         arrays = self.arrays1 if base_p == 1.0 else self.arrays2
@@ -524,7 +578,7 @@ class UHNSW:
                                        n_f32_rows_frac=f32f, n_band_frac=bandf)
 
     def _search_base_vec(self, Q, p_vec, k: int, base_p: float):
-        cands = self.search_stage_candidates(Q, base_p)
+        cands = self.search_stage_candidates(Q, base_p, k)
         ids, dists, st = self.search_stage_finish(Q, cands, p_vec, k)
         return (ids, dists, st.n_p, st.iterations, st.n_b, st.hops, st.n_dim_frac,
                 st.n_f32_rows_frac, st.n_band_frac)

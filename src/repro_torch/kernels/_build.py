@@ -32,6 +32,8 @@ LAUNCHERS = {
     "gather_lp_abandon": ("gather_lp_abandon_launch",
                           [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "pairwise_lp": ("pairwise_lp_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "rowwise_lp": ("rowwise_lp_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "lp_topk": ("lp_topk_launch", [_P] * 5 + [_I, _I, _I, _I, _P]),
     "gather_lp_screen": ("gather_lp_screen_launch",
                          [_P] * 10 + [_I, _I, _I, _I, _I, _I, _P]),
 }

@@ -24,27 +24,6 @@
 
 namespace {
 
-template <int F>
-__device__ float row_power_sum(const float* __restrict__ xr, const float* __restrict__ qs,
-                               int d, float p, int lane, bool vec4) {
-  float acc = 0.0f;
-  if (vec4) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-    const float4* q4 = reinterpret_cast<const float4*>(qs);
-    for (int i = lane; i < d / 4; i += 32) {
-      const float4 xv = __ldg(x4 + i);
-      const float4 qv = q4[i];
-      acc += lp::pow_from_abs<F>(fabsf(xv.x - qv.x), p);
-      acc += lp::pow_from_abs<F>(fabsf(xv.y - qv.y), p);
-      acc += lp::pow_from_abs<F>(fabsf(xv.z - qv.z), p);
-      acc += lp::pow_from_abs<F>(fabsf(xv.w - qv.w), p);
-    }
-  } else {
-    for (int i = lane; i < d; i += 32) acc += lp::pow_from_abs<F>(fabsf(__ldg(xr + i) - qs[i]), p);
-  }
-  return lp::warp_sum(acc);
-}
-
 __global__ void __launch_bounds__(lp::kWarps * 32)
 gather_lp_kernel(const int* __restrict__ ids, const float* __restrict__ q,
                  const float* __restrict__ x, const float* __restrict__ p,
@@ -65,14 +44,7 @@ gather_lp_kernel(const int* __restrict__ ids, const float* __restrict__ q,
   float result = INFINITY;
   if (id >= 0 && id < n) {
     const float* xr = x + static_cast<size_t>(id) * d;
-    const float pr = p[b];
-    switch (lp::family_of(pr)) {
-      case lp::kL1: result = row_power_sum<lp::kL1>(xr, qs, d, pr, lane, vec4); break;
-      case lp::kL2: result = row_power_sum<lp::kL2>(xr, qs, d, pr, lane, vec4); break;
-      case lp::kSqrt: result = row_power_sum<lp::kSqrt>(xr, qs, d, pr, lane, vec4); break;
-      case lp::kL15: result = row_power_sum<lp::kL15>(xr, qs, d, pr, lane, vec4); break;
-      default: result = row_power_sum<lp::kGeneral>(xr, qs, d, pr, lane, vec4); break;
-    }
+    result = lp::row_power_sum_any(xr, qs, d, p[b], lane, vec4);
   }
   if (lane == 0) out[slot] = result;
 }

@@ -58,4 +58,41 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Root-free power sum of one row against the query row qs (shared memory), taken by one
+// warp: lane j reads elements j, j + 32, ... (as float4 when vec4, i.e. d % 4 == 0 and
+// the row 16-byte aligned), then a butterfly sum leaves the total on every lane.
+template <int F>
+__device__ float row_power_sum(const float* __restrict__ xr, const float* __restrict__ qs,
+                               int d, float p, int lane, bool vec4) {
+  float acc = 0.0f;
+  if (vec4) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    const float4* q4 = reinterpret_cast<const float4*>(qs);
+    for (int i = lane; i < d / 4; i += 32) {
+      const float4 xv = __ldg(x4 + i);
+      const float4 qv = q4[i];
+      acc += pow_from_abs<F>(fabsf(xv.x - qv.x), p);
+      acc += pow_from_abs<F>(fabsf(xv.y - qv.y), p);
+      acc += pow_from_abs<F>(fabsf(xv.z - qv.z), p);
+      acc += pow_from_abs<F>(fabsf(xv.w - qv.w), p);
+    }
+  } else {
+    for (int i = lane; i < d; i += 32) acc += pow_from_abs<F>(fabsf(__ldg(xr + i) - qs[i]), p);
+  }
+  return warp_sum(acc);
+}
+
+// row_power_sum with the family picked from p: one switch per row, none per element.
+__device__ __forceinline__ float row_power_sum_any(const float* __restrict__ xr,
+                                                   const float* __restrict__ qs, int d, float p,
+                                                   int lane, bool vec4) {
+  switch (family_of(p)) {
+    case kL1: return row_power_sum<kL1>(xr, qs, d, p, lane, vec4);
+    case kL2: return row_power_sum<kL2>(xr, qs, d, p, lane, vec4);
+    case kSqrt: return row_power_sum<kSqrt>(xr, qs, d, p, lane, vec4);
+    case kL15: return row_power_sum<kL15>(xr, qs, d, p, lane, vec4);
+    default: return row_power_sum<kGeneral>(xr, qs, d, p, lane, vec4);
+  }
+}
+
 }  // namespace lp

@@ -1,13 +1,16 @@
 """Wrappers of the hand-written CUDA Lp kernels.
 
-`pairwise_lp`, `gather_lp`, `gather_lp_abandon` and `gather_lp_screen`
-take the place of the Pallas kernels `pairwise_lp_kernel_call`,
+`pairwise_lp`, `rowwise_lp`, `gather_lp`, `gather_lp_abandon` and
+`gather_lp_screen` take the place of the Pallas kernels
+`pairwise_lp_kernel_call`, `rowwise_lp_kernel_call`,
 `gather_lp_kernel_call`, `gather_lp_abandon_kernel_call` and
-`gather_lp_screen_kernel_call` of `repro.kernels.lp_distance`. For CUDA tensors each launches its kernel
-(built at first use by `kernels._build`) on the current stream, or raises;
-for CPU tensors each runs its plain version from `kernels.ref`. Each keeps
-a count of its kernel launches in its `launches` attribute, so that a run
-can show that the query path went through the kernel.
+`gather_lp_screen_kernel_call` of `repro.kernels.lp_distance` (the sixth,
+`lp_topk`, has its own module, `kernels.lp_topk`). For CUDA tensors each
+launches its kernel (built at first use by `kernels._build`) on the
+current stream, or raises; for CPU tensors each runs its plain version
+from `kernels.ref`. Each keeps a count of its kernel launches in its
+`launches` attribute, so that a run can show that a path went through the
+kernel; `launch_counts` reads all six.
 """
 
 from __future__ import annotations
@@ -21,19 +24,28 @@ from repro_torch.kernels.ref import (
     gather_lp_ref,
     gather_lp_screen_ref,
     pairwise_lp_ref,
+    rowwise_lp_ref,
 )
 
-_WRAPPERS = ("pairwise_lp", "gather_lp", "gather_lp_abandon", "gather_lp_screen")
+_WRAPPERS = ("pairwise_lp", "rowwise_lp", "gather_lp", "gather_lp_abandon", "gather_lp_screen")
+
+
+def _wrappers() -> dict:
+    """Every kernel wrapper by name, `kernels.lp_topk.lp_topk` included
+    (imported here, since that module imports this one)."""
+    from repro_torch.kernels import lp_topk
+
+    return {**{name: globals()[name] for name in _WRAPPERS}, "lp_topk": lp_topk.lp_topk}
 
 
 def reset_launch_counts() -> None:
     """Sets every kernel's launch count to 0."""
-    for name in _WRAPPERS:
-        globals()[name].launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: globals()[name].launches for name in _WRAPPERS}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -87,6 +99,31 @@ def pairwise_lp(q: torch.Tensor, x: torch.Tensor, p) -> torch.Tensor:
         q.data_ptr(), x.data_ptr(), pv.data_ptr(), out.data_ptr(), b, n, d, _stream())
     pairwise_lp.launches += 1
     _raise_on(err, "pairwise_lp")
+    return out
+
+
+def rowwise_lp(q: torch.Tensor, c: torch.Tensor, p) -> torch.Tensor:
+    """Root-free sum_j |q[b, j] - c[b, i, j]|^p -> (B, C) float32.
+
+    q (B, d) f32, c (B, C, d) f32 pre-gathered candidate rows, p a float or
+    (B,) tensor. Rows under p = 2 sum the squared differences directly; the
+    Pallas kernel takes the product identity |q|^2 + |c|^2 - 2 q.c there,
+    which differs from it by the identity's cancellation error.
+    """
+    if _on_cpu(q):
+        return rowwise_lp_ref(q, c, p)
+    b, d = q.shape
+    cc = c.shape[1]
+    q = q.contiguous()
+    c = c.contiguous()
+    _check("q", q, torch.float32, (b, d), c.device)
+    _check("c", c, torch.float32, (b, cc, d), q.device)
+    pv = _p_rows(p, b, q.device)
+    out = torch.empty((b, cc), dtype=torch.float32, device=q.device)
+    err = _build.launcher("rowwise_lp")(
+        q.data_ptr(), c.data_ptr(), pv.data_ptr(), out.data_ptr(), b, cc, d, _stream())
+    rowwise_lp.launches += 1
+    _raise_on(err, "rowwise_lp")
     return out
 
 
@@ -207,4 +244,5 @@ def gather_lp_screen(q: torch.Tensor, ids: torch.Tensor, codes: torch.Tensor,
     return keep, nd
 
 
-reset_launch_counts()
+for _name in _WRAPPERS:
+    globals()[_name].launches = 0

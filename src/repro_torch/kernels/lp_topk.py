@@ -1,0 +1,57 @@
+"""Wrapper of the hand-written fused Lp + top-k kernel.
+
+`lp_topk` takes the place of the Pallas kernel `pallas_lp_topk` of
+`repro.kernels.lp_topk`: for each query, the k nearest of its own
+candidate block (B, C, d) under one scalar p, with only (B, k) leaving the
+kernel. For CUDA tensors it launches `csrc/lp_topk.cu` on the current
+stream, or raises; for CPU tensors it runs `kernels.ref.lp_topk_ref`. Its
+launch count is `lp_topk.launches`, which `lp_distance.launch_counts`
+reads with the other kernels'.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.lp_ops import is_static_p, lp_root
+from repro_torch.kernels import _build
+from repro_torch.kernels.lp_distance import _check, _on_cpu, _p_rows, _raise_on, _stream
+from repro_torch.kernels.ref import lp_topk_ref
+
+MAX_K = 64   # the running list the kernel keeps in shared memory
+
+
+def lp_topk(q: torch.Tensor, c: torch.Tensor, p: float, k: int, root: bool = True):
+    """The k nearest candidates of each query -> (dists (B, k) f32, ids (B, k)
+    int32), ascending; ids index into the query's block (0..C-1) and ties go
+    to the lower index.
+
+    q (B, d) f32, c (B, C, d) f32, p one scalar (as in the reference, which
+    compiles one kernel per p), 1 <= k <= min(C, 64). With root the dists
+    are Lp distances, else root-free power sums.
+    """
+    if not is_static_p(p):
+        raise ValueError("lp_topk takes one scalar p for the whole batch")
+    b, cc, d = c.shape
+    if k > MAX_K:
+        raise ValueError(f"lp_topk keeps at most k = {MAX_K} (got k = {k})")
+    if not 1 <= k <= cc:
+        raise ValueError(f"k = {k} must lie in [1, C = {cc}]")
+    p = float(p)
+    if _on_cpu(q):
+        return lp_topk_ref(q, c, p, k, root)
+    q = q.contiguous()
+    c = c.contiguous()
+    _check("q", q, torch.float32, (b, d), c.device)
+    _check("c", c, torch.float32, (b, cc, d), q.device)
+    pv = _p_rows(p, b, q.device)
+    out_d = torch.empty((b, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
+    err = _build.launcher("lp_topk")(q.data_ptr(), c.data_ptr(), pv.data_ptr(), out_d.data_ptr(),
+                                     out_i.data_ptr(), b, cc, d, k, _stream())
+    lp_topk.launches += 1
+    _raise_on(err, "lp_topk")
+    return (lp_root(out_d, p) if root else out_d), out_i
+
+
+lp_topk.launches = 0

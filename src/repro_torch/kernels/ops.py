@@ -48,6 +48,15 @@ def lp_gather_distance(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor, p,
     return _root(d, p) if root else d
 
 
+def lp_rowwise_distance(q: torch.Tensor, c: torch.Tensor, p, root: bool = True):
+    """Rowwise Lp distances q (B, d) x pre-gathered c (B, C, d) -> (B, C) f32,
+    through the rowwise kernel (the counterpart of `pallas_rowwise_lp`).
+    p: a float, or a (B,) tensor ((1,) broadcasts) scoring row i under p[i]."""
+    p = _p_arg(p, q.shape[0], q.device)
+    d = _k.rowwise_lp(q, c, p)
+    return _root(d, p) if root else d
+
+
 def lp_pairwise_distance(q: torch.Tensor, x: torch.Tensor, p, root: bool = False):
     """All-pairs Lp distances q (B, d) x x (N, d) -> (B, N) f32, through the
     pairwise kernel. p: a float, or a (B,) tensor scoring row i under p[i]."""

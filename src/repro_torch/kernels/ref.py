@@ -15,6 +15,7 @@ from repro_torch.core.lp_ops import (
     BOUND_SLACK,
     is_static_p,
     lp_entry_bound,
+    lp_root,
     lp_suffix_bound,
     pow_from_abs,
 )
@@ -35,6 +36,26 @@ def pairwise_lp_ref(q: torch.Tensor, x: torch.Tensor, p) -> torch.Tensor:
     clamped at 0, as the kernel and the reference do.
     """
     return pairwise_lp(q, x, p, root=False)
+
+
+def rowwise_lp_ref(q: torch.Tensor, c: torch.Tensor, p) -> torch.Tensor:
+    """Root-free sum |q_b - c_bj|^p for pre-gathered rows c (B, C, d) -> (B, C) f32.
+
+    p = 2 rows sum the squared differences directly, as the kernel does.
+    """
+    return rowwise_lp(q, c, p, root=False)
+
+
+def lp_topk_ref(q: torch.Tensor, c: torch.Tensor, p: float, k: int, root: bool = True):
+    """The k nearest of each query's own candidate rows c (B, C, d) under one
+    scalar p -> (dists (B, k) f32, indices into the block (B, k) int32).
+
+    Rowwise root-free distances, then a stable sort, so ties go to the lower
+    index; the root is applied to the k kept.
+    """
+    sd, order = torch.sort(rowwise_lp(q, c, p, root=False), dim=1, stable=True)
+    sd = sd[:, :k]
+    return (lp_root(sd, p) if root else sd), order[:, :k].to(torch.int32)
 
 
 def gather_lp_ref(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor, p) -> torch.Tensor:

@@ -47,5 +47,8 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["blocked_loaded"] == []
     for name in ("repro_torch.core.bulk_build", "repro_torch.index.compressed",
-                 "repro_torch.kernels.ops", "repro_torch.core.uhnsw"):
+                 "repro_torch.kernels.ops", "repro_torch.core.uhnsw",
+                 "repro_torch.kernels.lp_topk", "repro_torch.index.sharded",
+                 "repro_torch.index.segment", "repro_torch.index.delta",
+                 "repro_torch.index.health"):
         assert name in report["modules"]

@@ -1,0 +1,165 @@
+"""The port's rowwise and fused top-k kernels' wrappers against `repro`.
+
+`lp_rowwise_distance` (kernel `csrc/rowwise_lp.cu`) is held against
+`repro.kernels.pallas_rowwise_lp`, and `lp_topk` (`csrc/lp_topk.cu`)
+against `repro.kernels.lp_topk.pallas_lp_topk`, both Pallas kernels in
+interpret mode on the CPU, on the reference tests' shapes and p grids. On
+CPU tensors the wrappers run their plain versions (`kernels.ref`); the
+kernels themselves run only on the card (`chip_smoke.py`).
+
+Tolerances: relative 3e-5, as the reference's own kernel tests allow. At
+p = 2 the Pallas rowwise kernel takes the product identity |q|^2 + |c|^2 -
+2 q.c while the port sums the squared differences, so there the bound
+covers the identity's cancellation error too. Top-k ids are equal except
+where two candidates tie at the k-th distance (within 1e-5): sums taken in
+another order may order such a pair either way.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import pallas_rowwise_lp
+from repro.kernels.lp_topk import pallas_lp_topk
+from repro_torch.kernels import lp_distance
+from repro_torch.kernels.lp_topk import MAX_K, lp_topk
+from repro_torch.kernels.ops import lp_rowwise_distance
+from repro_torch.kernels.ref import lp_topk_ref, rowwise_lp_ref
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+
+P_GRID = [0.5, 0.8, 1.0, 1.3, 1.5, 2.0]
+SHAPES_RW = [(1, 1, 8), (5, 33, 64), (16, 300, 128), (8, 257, 960)]
+TOPK_CASES = [(1, 64, 16, 5), (4, 300, 128, 50), (3, 257, 96, 10), (2, 1000, 64, 25)]
+REL = 3e-5
+
+
+def _rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / (np.abs(want) + 1e-5)))
+
+
+def _rowwise_case(b, c, d, seed):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, d)) * 3).astype(np.float32)
+    cands = (rng.standard_normal((b, c, d)) * 3).astype(np.float32)
+    return q, cands
+
+
+@pytest.mark.parametrize("p", P_GRID)
+@pytest.mark.parametrize("shape", SHAPES_RW)
+def test_rowwise_matches_pallas_rowwise(p, shape):
+    q, cands = _rowwise_case(*shape, seed=shape[0] * 17 + shape[1])
+    want = np.asarray(pallas_rowwise_lp(jnp.asarray(q), jnp.asarray(cands), p, interpret=True))
+    got = lp_rowwise_distance(torch.from_numpy(q), torch.from_numpy(cands), p)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel_err(got.numpy(), want) < REL
+
+
+@pytest.mark.parametrize("root", [True, False])
+@pytest.mark.parametrize("shape", [(8, 33, 64), (6, 257, 96)])
+def test_rowwise_per_row_p_matches_pallas_and_scalar_rows(shape, root):
+    q, cands = _rowwise_case(*shape, seed=shape[1])
+    pv = np.resize(np.array(P_GRID, np.float32), shape[0])
+    want = np.asarray(pallas_rowwise_lp(jnp.asarray(q), jnp.asarray(cands), jnp.asarray(pv),
+                                        root=root, interpret=True))
+    got = lp_rowwise_distance(torch.from_numpy(q), torch.from_numpy(cands),
+                              torch.from_numpy(pv), root=root)
+    assert _rel_err(got.numpy(), want) < REL
+    # each row equals the scalar call at its p, bit for bit; (1,) broadcasts
+    for p in np.unique(pv):
+        rows = np.flatnonzero(pv == p)
+        scalar = lp_rowwise_distance(torch.from_numpy(q), torch.from_numpy(cands), float(p),
+                                     root=root)
+        np.testing.assert_array_equal(got[rows].numpy(), scalar[rows].numpy())
+    one = lp_rowwise_distance(torch.from_numpy(q), torch.from_numpy(cands),
+                              torch.tensor([1.3]), root=root)
+    np.testing.assert_array_equal(one.numpy(), lp_rowwise_distance(
+        torch.from_numpy(q), torch.from_numpy(cands), 1.3, root=root).numpy())
+
+
+def _assert_topk_matches(got_d, got_i, want_d, want_i, all_d, k):
+    """dists within REL; ids equal, or a tie at the k-th distance."""
+    got_d, got_i = np.asarray(got_d), np.asarray(got_i)
+    np.testing.assert_allclose(got_d, np.asarray(want_d), rtol=REL, atol=1e-5)
+    for row in range(got_i.shape[0]):
+        if set(got_i[row]) != set(np.asarray(want_i)[row]):
+            kth = np.sort(all_d[row])[k - 1]
+            assert np.isclose(kth, got_d[row, -1], rtol=1e-5), f"row {row}"
+
+
+@pytest.mark.parametrize("p", [0.5, 1.0, 1.3, 2.0])
+@pytest.mark.parametrize("case", TOPK_CASES)
+def test_lp_topk_matches_pallas_lp_topk(p, case):
+    b, c, d, k = case
+    kq, kc = jax.random.split(jax.random.PRNGKey(b * 7 + c))
+    q = np.array(jax.random.normal(kq, (b, d), dtype=jnp.float32))
+    cands = np.array(jax.random.normal(kc, (b, c, d), dtype=jnp.float32))
+    want_d, want_i = pallas_lp_topk(jnp.asarray(q), jnp.asarray(cands), p, k)
+    got_d, got_i = lp_topk(torch.from_numpy(q), torch.from_numpy(cands), p, k)
+    assert got_d.shape == (b, k) and got_i.dtype == torch.int32
+    all_d = lp_rowwise_distance(torch.from_numpy(q), torch.from_numpy(cands), p).numpy()
+    _assert_topk_matches(got_d, got_i, want_d, want_i, all_d, k)
+
+
+def test_lp_topk_sorted_valid_and_root_free():
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((5, 32)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((5, 200, 32)).astype(np.float32))
+    d, i = lp_topk(q, c, 1.3, 20)
+    assert (np.diff(d.numpy(), axis=1) >= 0).all()
+    assert ((i >= 0) & (i < 200)).all()
+    d_r, i_r = lp_topk(q[:2, :24], c[:2, :100, :24].contiguous(), 0.7, 8, root=True)
+    d_n, i_n = lp_topk(q[:2, :24], c[:2, :100, :24].contiguous(), 0.7, 8, root=False)
+    np.testing.assert_array_equal(i_r.numpy(), i_n.numpy())
+    np.testing.assert_allclose(d_r.numpy(), d_n.numpy() ** (1 / 0.7), rtol=1e-4)
+    want_d, want_i = pallas_lp_topk(jnp.asarray(q[:2, :24].numpy()),
+                                    jnp.asarray(c[:2, :100, :24].numpy()), 0.7, 8, root=False)
+    np.testing.assert_allclose(d_n.numpy(), np.asarray(want_d), rtol=REL)
+    np.testing.assert_array_equal(i_n.numpy(), np.asarray(want_i))
+
+
+@pytest.mark.parametrize("p", [0.5, 1.3, 2.0])
+def test_lp_topk_ties_go_to_the_lower_index(p):
+    """Every candidate row appears twice, the copy at a later index: each
+    returned id must be the lower of its pair, as the reference's stable
+    sort gives, and the copy follows the original where both are kept."""
+    rng = np.random.default_rng(3)
+    b, half, d, k = 4, 60, 48, 31
+    base = rng.standard_normal((b, half, d)).astype(np.float32)
+    perm = rng.permutation(2 * half)
+    cands = np.concatenate([base, base], axis=1)[:, perm]       # copies at scattered indices
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    got_d, got_i = lp_topk(torch.from_numpy(q), torch.from_numpy(cands), p, k)
+    want_d, want_i = pallas_lp_topk(jnp.asarray(q), jnp.asarray(cands), p, k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=REL)
+    twin = {int(j): int(np.flatnonzero(perm % half == perm[j] % half).min())
+            for j in range(2 * half)}
+    gi = got_i.numpy()
+    for row in range(b):
+        for slot in range(0, k - 1, 2):       # pairs come adjacent: original, copy
+            assert gi[row, slot] == twin[gi[row, slot]], (row, slot)
+            assert twin[gi[row, slot + 1]] == gi[row, slot]
+
+
+def test_lp_topk_limits_and_plain_version_without_counting():
+    q = torch.zeros((2, 8))
+    c = torch.zeros((2, 100, 8))
+    with pytest.raises(ValueError, match=f"at most k = {MAX_K}"):
+        lp_topk(q, c, 1.0, MAX_K + 1)
+    with pytest.raises(ValueError, match="C = 3"):
+        lp_topk(q, c[:, :3], 1.0, 4)
+    with pytest.raises(ValueError, match="one scalar p"):
+        lp_topk(q, c, torch.tensor([1.0, 2.0]), 4)
+    lp_distance.reset_launch_counts()
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((3, 16)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((3, 70, 16)).astype(np.float32))
+    for got, want in zip(lp_topk(q, c, 0.8, 7), lp_topk_ref(q, c, 0.8, 7)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(lp_distance.rowwise_lp(q, c, 0.8).numpy(),
+                                  rowwise_lp_ref(q, c, 0.8).numpy())
+    counts = lp_distance.launch_counts()
+    assert counts["lp_topk"] == 0 and counts["rowwise_lp"] == 0

@@ -294,8 +294,9 @@ def test_wrappers_run_plain_versions_on_cpu_without_counting():
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     np.testing.assert_array_equal(lp_distance.pairwise_lp(tq, tx, 1.25).numpy(),
                                   pairwise_lp_ref(tq, tx, 1.25).numpy())
-    assert lp_distance.launch_counts() == {"pairwise_lp": 0, "gather_lp": 0,
-                                           "gather_lp_abandon": 0, "gather_lp_screen": 0}
+    assert lp_distance.launch_counts() == {"pairwise_lp": 0, "rowwise_lp": 0, "gather_lp": 0,
+                                           "gather_lp_abandon": 0, "gather_lp_screen": 0,
+                                           "lp_topk": 0}
 
 
 def test_wrappers_refuse_other_devices():
