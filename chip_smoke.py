@@ -33,7 +33,12 @@ counts set to 0 just before it and read just after:
      pairwise_lp on the delta scan), then compacted into a fifth segment.
 
 It builds the CUDA kernels with nvcc first, holds each kernel against its
-plain PyTorch version on the card at the paths' shapes, measures recall
+plain PyTorch version on the card at the paths' shapes and at shapes the
+paths' defaults do not reach (pairwise_lp at ragged shapes, with its level
+calls exactly symmetric; gather_lp_abandon at block_d 8 and 16, C = 1 and
+37, on strided id slices; lp_topk at k = 65 and k = C), times each kernel
+around its wrapper (`ms`) and on the device alone (`device_ms`, calls
+captured in a CUDA graph), measures recall
 against a brute-force top-k and checks it against the same search with the
 plain versions, checks that every row of a mixed batch equals the scalar
 call at its p, that the band and energy-ordered paths return the default
@@ -68,6 +73,7 @@ PLAIN_ROWS = 256         # rows of a level the plain pairwise version scores at 
 SHARED_IDS = 1024        # rows of the shared-ids (1-D) pairwise form
 MAX_RECALL_GAP = 0.002
 TIMING_REPS = 50
+GRAPH_CALLS = 20         # calls captured in one CUDA graph for a device-only time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 # H100 SXM float32 outside the tensor cores, NVIDIA data sheet. The figure
 # counts an FMA as 2 FLOPs; instructions that are not FMAs issue at half of
@@ -126,6 +132,44 @@ def median_ms(fn, reps: int = TIMING_REPS, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, calls: int = GRAPH_CALLS, reps: int = 5) -> float:
+    """Device-only time of one call: `calls` back-to-back calls captured in
+    one CUDA graph (torch.cuda.graphs), its replay timed with CUDA events
+    (median of `reps` replays) and divided by `calls`. The wrapper's host
+    work (Python, checks, the launch itself) is not in it, so `ms` less
+    `device_ms` is what the host adds to a call made alone."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    _sync()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / calls)
+    del graph
+    return float(np.median(times))
+
+
+def kernel_ms(fn, reps: int = TIMING_REPS, calls: int = GRAPH_CALLS) -> dict:
+    """{"ms": median per-call time around the wrapper, "device_ms": the
+    same calls' device-only time}."""
+    return {"ms": median_ms(fn, reps=reps), "device_ms": device_ms(fn, calls=calls)}
+
+
 def ops_per_element(p) -> np.ndarray:
     if hasattr(p, "cpu"):
         p = p.cpu().numpy()
@@ -169,6 +213,28 @@ def plain_versions():
     finally:
         for name, fn in saved.items():
             setattr(lp_distance, name, fn)
+
+
+@contextmanager
+def build_gather_shapes():
+    """Records the (B, C) shape of every per-row gather call the bulk build
+    makes through `lp_gather_distance` (its scoring passes; launches are
+    counted as usual)."""
+    from repro_torch.core import bulk_build
+
+    shapes = []
+    fn = bulk_build.lp_gather_distance
+
+    def record(q, ids, x, p, *args, **kwargs):
+        if ids.ndim == 2:
+            shapes.append(tuple(ids.shape))
+        return fn(q, ids, x, p, *args, **kwargs)
+
+    bulk_build.lp_gather_distance = record
+    try:
+        yield shapes
+    finally:
+        bulk_build.lp_gather_distance = fn
 
 
 def counted(fn, *args, **kwargs):
@@ -304,18 +370,19 @@ def phase_index_bulk(X, Q, truth, host):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = _now()
-    index, launched = counted(UHNSW.build, X, m=M, seed=0, method="bulk")
+    with build_gather_shapes() as shapes:
+        index, launched = counted(UHNSW.build, X, m=M, seed=0, method="bulk")
     seconds = _now() - t0
     peak = torch.cuda.max_memory_allocated() / 2**20
     check(launched["pairwise_lp"] > 0 and launched["gather_lp"] > 0,
           f"bulk build did not launch its kernels: {launched}")
     stats = graph_stats(index, Q, truth)
     emit({"phase": "index_bulk", "method": "bulk", "seconds": seconds, **stats,
-          "peak_device_mib": peak, "launches": launched,
+          "peak_device_mib": peak, "launches": launched, "gather_shapes": shapes,
           "host_builder": {"seconds": host["seconds"],
                            "peak_device_mib": host["peak_device_mib"],
                            **host["graphs"]}})
-    return index, launched
+    return index, launched, shapes
 
 
 def phase_kernels(index, Q):
@@ -371,29 +438,68 @@ def phase_kernels(index, Q):
         g_bound = bound(g_bytes, float(np.sum(valid * d * ope_rows)))
         scanned = nd_got.sum(1).cpu().numpy()
         live_rows = int((nd_got.sum(1) > 0).sum())
-        a_bytes = 4 * (scanned.sum() + live_rows * d + 4 * batch.numel() + 2 * Q.shape[0])
+        # the kernel loads one block ahead: a candidate that died mid-row
+        # (0 < nd < d) also read the block after the one it died in
+        ahead = int(((nd_got > 0) & (nd_got < d)).sum())
+        a_bytes = 4 * (scanned.sum() + ahead * bd + live_rows * d + 4 * batch.numel()
+                       + 2 * Q.shape[0])
         a_bound = bound(a_bytes, float(np.sum(scanned * (ope_rows + 2))))
         row = {
             "p": label, "base_p": base,
             "gather_lp": {
                 "shape": list(first.shape), "max_rel_err": g_rel, "max_abs_err": g_abs,
-                "ms": median_ms(lambda: kd.gather_lp(Q, first, X, p)),
+                **kernel_ms(lambda: kd.gather_lp(Q, first, X, p)),
                 "plain_ms": median_ms(lambda: ref.gather_lp_ref(Q, first, X, p)),
                 "bound_ms": g_bound[0], "bound_by": g_bound[1]},
             "gather_lp_abandon": {
                 "shape": list(batch.shape), "block_d": bd, **a_stats,
                 "survivor_case": s_stats,
                 "dim_frac": float(scanned.sum() / (batch.numel() * d)),
-                "ms": median_ms(lambda: kd.gather_lp_abandon(Q, batch, X, thresh, sb, p,
-                                                             base, bd)),
+                **kernel_ms(lambda: kd.gather_lp_abandon(Q, batch, X, thresh, sb, p,
+                                                         base, bd)),
                 "plain_ms": median_ms(lambda: ref.gather_lp_abandon_ref(
                     Q, batch, X, thresh, sb, p, base, bd)),
                 "bound_ms": a_bound[0], "bound_by": a_bound[1]},
         }
         rows.append(row)
         emit({"phase": "kernels", "case": row})
+    extra = abandon_cases(Q, X, cands, p_mix, thresh)
+    worst["gather_lp_abandon"] = max(worst["gather_lp_abandon"],
+                                     max(r["max_abs_err"] for r in extra.values()))
+    emit({"phase": "kernels", "gather_lp_abandon_cases": extra})
     emit({"phase": "kernels", "seconds": _now() - t0})
     return rows, worst
+
+
+def abandon_cases(Q, X, cands, p_mix, thresh) -> dict:
+    """gather_lp_abandon at the shapes the path's defaults do not reach,
+    each against its plain version under compare_abandon's rule: block_d 8
+    and 16, C = 1 and C = 37, ids and sb passed as the verification loop
+    passes them (column slices of the candidate lists, read through their
+    row strides, not copied), and rows frozen (-inf) or unbounded (+inf)
+    beside rows at the path's thresholds. Mixed p over G1's candidates,
+    and scalar p = 0.8."""
+    import torch
+
+    c = cands[1.0]
+    r8 = torch.arange(Q.shape[0], device=X.device) % 8
+    thr2 = torch.where(r8 == 1, -torch.inf, torch.where(r8 == 2, torch.inf, thresh)).contiguous()
+    kappa = K // 2
+    out = {}
+    for p, plabel in ((p_mix, "mixed"), (0.8, "0.8")):
+        for bd in (8, 16):
+            sl = slice(K, K + kappa)
+            _, out[f"block_d={bd} p={plabel}"] = compare_abandon(
+                Q, c.ids[:, sl], X, thr2, c.base_dists[:, sl], p, 1.0, bd,
+                f"{plabel} block_d={bd}")
+        for width in (1, 37):
+            sl = slice(K - 1, K - 1 + width)      # the k-th candidate first: survivors too
+            ids, sb = c.ids[:, sl], c.base_dists[:, sl]
+            check(not ids.is_contiguous() and not sb.is_contiguous(), "strided slices")
+            _, out[f"C={width} p={plabel}"] = compare_abandon(
+                Q, ids, X, thr2, sb, p, 1.0, 32, f"{plabel} C={width}")
+    check(all(r["survivors"] > 0 for r in out.values()), "abandon cases: a case with no survivor")
+    return out
 
 
 def _search(index, Q, p):
@@ -540,7 +646,7 @@ def pairwise_case(q, x, p, label: str):
     (b, d), n = q.shape, x.shape[0]
     bnd = pairwise_bound(b, n, d, p, b + n)
     return {"case": label, "shape": [b, n, d], **errs,
-            "ms": median_ms(lambda: kd.pairwise_lp(q, x, p)),
+            **kernel_ms(lambda: kd.pairwise_lp(q, x, p)),
             "plain_ms": median_ms(lambda: ref.pairwise_lp_ref(q, x, p), reps=10),
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
@@ -558,13 +664,15 @@ def pairwise_level(sub, p: float, label: str, timed: bool):
     nl, d = sub.shape
     got = kd.pairwise_lp(sub, sub, p)
     _sync()
+    check(bool((got == got.T).all()), f"pairwise_lp {label}: not exactly symmetric")
     blocks = [pairwise_errors(got[s:s + PLAIN_ROWS], ref.pairwise_lp_ref(sub[s:s + PLAIN_ROWS],
                                                                            sub, p),
                               sub[s:s + PLAIN_ROWS], sub, p)
               for s in range(0, nl, PLAIN_ROWS)]
     errs = check_pairwise(label, (max(e[0] for e in blocks), max(e[1] for e in blocks),
                                   max(e[2] for e in blocks), sum(e[3] for e in blocks)))
-    row = {"case": label, "shape": [nl, nl, d], "plain_blocks": len(blocks), **errs}
+    row = {"case": label, "shape": [nl, nl, d], "plain_blocks": len(blocks), **errs,
+           "symmetric": True}
     if timed:
         def plain():
             return [ref.pairwise_lp_ref(sub[s:s + PLAIN_ROWS], sub, p)
@@ -572,7 +680,7 @@ def pairwise_level(sub, p: float, label: str, timed: bool):
 
         bnd = pairwise_bound(nl, nl, d, p, nl)
         # the library call: one PyTorch call of the same function (rooted at p = 2)
-        row.update({"ms": median_ms(lambda: kd.pairwise_lp(sub, sub, p), reps=10),
+        row.update({**kernel_ms(lambda: kd.pairwise_lp(sub, sub, p), reps=10, calls=10),
                     "plain_ms": median_ms(plain, reps=5, warmup=1),
                     "bound_ms": bnd[0], "bound_by": bnd[1],
                     "library_ms": median_ms(lambda: torch.cdist(sub, sub, p=float(p)),
@@ -643,10 +751,51 @@ def screen_tight(Qp, batch, band, sb, p, base, bd, label) -> dict:
     return out
 
 
-def phase_kernels_bulk(index, Q):
+def gather_build_case(X, shapes) -> dict:
+    """gather_lp at the bulk build's own scoring shape: the (B, C) it calls
+    most often (ties to the larger), random candidate ids into the corpus
+    for each of the first B rows. The kernel's output is held against the
+    plain version on its first PLAIN_ROWS rows (the plain version builds a
+    (B, C, d) block, too large at the full shape), which is also what
+    `plain_ms` times."""
+    import torch
+
+    from repro_torch.kernels import lp_distance as kd
+    from repro_torch.kernels import ref
+
+    n, d = X.shape
+    b, c = max(set(shapes), key=lambda s: (shapes.count(s), s[0] * s[1]))
+    rng = np.random.default_rng(1)
+    q = X[:b].contiguous()
+    ids = torch.from_numpy(rng.integers(0, n, (b, c)).astype(np.int32)).to(X.device)
+    got = kd.gather_lp(q, ids, X, 1.0)
+    rows = slice(0, PLAIN_ROWS)
+    want = ref.gather_lp_ref(q[rows], ids[rows], X, 1.0)
+    _sync()
+    rel, abs_err, mis = rel_err(got[rows], want)
+    check(mis == 0 and rel <= RTOL, f"gather_lp build shape: rel {rel} mismatch {mis}")
+    # each input read once: the distinct corpus rows the ids name, the query
+    # rows, the ids; the output written once. (Counting every gathered row,
+    # as the kernel reads them, would give `gathered_bytes_ms`.)
+    rows_named = int(torch.unique(ids).numel())
+    bnd = bound(4 * (rows_named * d + q.numel() + 2 * b * c),
+                float(b * c * d * OPS_PER_ELEMENT[1.0]))
+    return {"case": "build scoring, p=1", "shape": [b, c, d], "calls_at_shape": shapes.count((b, c)),
+            "build_calls": len(shapes), "distinct_shapes": sorted(set(shapes)),
+            "max_rel_err": rel, "max_abs_err": abs_err,
+            **kernel_ms(lambda: kd.gather_lp(q, ids, X, 1.0), reps=10, calls=5),
+            "plain_rows": PLAIN_ROWS,
+            "plain_ms_on_plain_rows": median_ms(lambda: ref.gather_lp_ref(q[rows], ids[rows], X,
+                                                                          1.0), reps=5),
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "gathered_bytes_ms": 4 * b * c * d / HBM_BYTES_PER_S * 1e3, "library_ms": None}
+
+
+def phase_kernels_bulk(index, Q, build_shapes):
     """pairwise_lp at every upper-level call of the bulk build and at the
-    shared-ids form, gather_lp_screen at the band search's shapes and at
-    thresholds that kill, each against its plain version."""
+    shared-ids form, gather_lp at the build's own scoring shape,
+    gather_lp_screen at the band search's shapes and at thresholds that
+    kill, each against its plain version."""
     import torch
 
     from repro_torch.core.metrics import base_metric_for
@@ -660,6 +809,9 @@ def phase_kernels_bulk(index, Q):
     dev = X.device
     out = {"pairwise_lp": [], "gather_lp_screen": []}
     worst = {"pairwise_lp": 0.0, "gather_lp_screen": 0.0}
+    out["gather_lp_build"] = gather_build_case(X, build_shapes)
+    worst["gather_lp_build"] = out["gather_lp_build"]["max_abs_err"]
+    emit({"phase": "kernels_bulk", "kernel": "gather_lp", **out["gather_lp_build"]})
 
     # every upper level's pass of the bulk build (levels are shared by G1
     # and G2), at both base metrics, as one launch each; timed at level 1
@@ -679,6 +831,21 @@ def phase_kernels_bulk(index, Q):
     out["pairwise_lp"].append(row)
     worst["pairwise_lp"] = max(worst["pairwise_lp"], row["max_abs_err"])
     emit({"phase": "kernels_bulk", "kernel": "pairwise_lp", **row})
+    # ragged shapes: B and N not multiples of the 128-row tile, d not a
+    # multiple of the 32-deep stage, and d % 4 != 0 (rows that are not
+    # 16-byte aligned take the kernel's 4-byte staging)
+    for (b, nn, dd), ps in (((1000, 777, 100), (1.0, 2.0, 0.8, "mixed")),
+                            ((130, 129, 33), (1.5, 2.0, "mixed"))):
+        q = X[:b, :dd].contiguous()
+        x = X[b:b + nn, :dd].contiguous()
+        for p in ps:
+            pv = torch.from_numpy(mixed_p(b)).to(dev) if p == "mixed" else p
+            errs = check_pairwise(f"ragged {b}x{nn}x{dd} p={p}",
+                                  pairwise_errors(kd.pairwise_lp(q, x, pv),
+                                                  ref.pairwise_lp_ref(q, x, pv), q, x, pv))
+            worst["pairwise_lp"] = max(worst["pairwise_lp"], errs["max_abs_err"])
+            emit({"phase": "kernels_bulk", "kernel": "pairwise_lp",
+                  "case": f"ragged p={p}", "shape": [b, nn, dd], **errs})
 
     # the screen on the band search's kappa batches
     band = index.compressed_band()
@@ -714,9 +881,8 @@ def phase_kernels_bulk(index, Q):
         row = {"p": label, "base_p": base, "shape": list(batch.shape), "block_d": bd, **stats,
                "survivor_case": s_stats, "tight_cases": t_stats, "band_frac": float(scanned.sum() / (batch.numel() * d)),
                "max_abs_err": 0.0,
-               "ms": median_ms(lambda: kd.gather_lp_screen(Qp, batch, band.codes, band.scale,
-                                                           band.radius, thresh, sb, p, base,
-                                                           bd)),
+               **kernel_ms(lambda: kd.gather_lp_screen(Qp, batch, band.codes, band.scale,
+                                                       band.radius, thresh, sb, p, base, bd)),
                "plain_ms": median_ms(lambda: ref.gather_lp_screen_ref(
                    Qp, batch, band.codes, band.scale, band.radius, thresh, sb, p, base, bd)),
                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
@@ -830,7 +996,7 @@ def phase_kernels_rest(index, Q):
         ops = float(np.broadcast_to(ops_per_element(p), (b,)).sum()) * t * d
         bnd = bound(4 * (c.numel() + Q.numel() + b * t + b), ops)
         row = {"p": label, "shape": [b, t, d], "max_rel_err": r, "max_abs_err": a,
-               "ms": median_ms(lambda: kd.rowwise_lp(Q, c, p), reps=20),
+               **kernel_ms(lambda: kd.rowwise_lp(Q, c, p), reps=20),
                "plain_ms": median_ms(lambda: ref.rowwise_lp_ref(Q, c, p), reps=5),
                "bound_ms": bnd[0], "bound_by": bnd[1],
                "library_ms": None if label == "mixed" else median_ms(
@@ -846,7 +1012,7 @@ def phase_kernels_rest(index, Q):
         if k == K:
             ope = float(ops_per_element(p)[0])
             bnd = bound(4 * (c.numel() + Q.numel() + 2 * b * k + b), ope * c.numel())
-            row.update({"ms": median_ms(lambda: lp_topk(Q, c, p, k), reps=20),
+            row.update({**kernel_ms(lambda: lp_topk(Q, c, p, k), reps=20),
                         "plain_ms": median_ms(lambda: ref.lp_topk_ref(Q, c, p, k), reps=5),
                         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None})
         out["lp_topk"].append(row)
@@ -867,6 +1033,17 @@ def phase_kernels_rest(index, Q):
                 first = (got_i[:, :slot] == (got_i[:, slot] - t)[:, None]).any(1)
                 check(bool((~copy | first).all()),
                       f"lp_topk tie case p={p} k={k}: a copy came before its original")
+    # k above the 64 the kernel once capped, up to k = C = t: the running
+    # list sized by k in shared memory
+    large_k = {}
+    for p, k in ((1.25, 65), (0.8, 65), (1.25, t), (0.5, t)):
+        got_d, got_i = lp_topk(Q, c, p, k)
+        want_d, want_i = ref.lp_topk_ref(Q, c, p, k)
+        errs = topk_errors(got_d, got_i, want_d, want_i, ref.rowwise_lp_ref(Q, c, p), k,
+                           f"large k p={p} k={k}")
+        worst["lp_topk"] = max(worst["lp_topk"], errs["max_abs_err"])
+        large_k[f"p={p} k={k}"] = errs
+    emit({"phase": "kernels_rest", "kernel": "lp_topk", "large_k_cases": large_k})
     # a block of 257 candidates: not a whole tile
     c257 = c[:, :257].contiguous()
     for p in P_SCALAR:
@@ -1102,6 +1279,42 @@ def phase_delta(idx):
     return delta_launches
 
 
+def kernels_line(kernel_rows, bulk_rows, rest_rows, launches, worst) -> list:
+    """The summary line's entries, one per kernel: the timed row of its
+    path's case, its launches on its path's counted run, and its largest
+    error against its plain version over every case."""
+    mix_row = kernel_rows[-1]
+    rows = {"gather_lp": mix_row["gather_lp"], "gather_lp_abandon": mix_row["gather_lp_abandon"],
+            "pairwise_lp": bulk_rows["pairwise_lp"][0],
+            "gather_lp_screen": bulk_rows["gather_lp_screen"][-1],
+            "rowwise_lp": next(r for r in rest_rows["rowwise_lp"] if r["p"] == "1.25"),
+            "lp_topk": next(r for r in rest_rows["lp_topk"] if r["p"] == 1.25 and r["k"] == K)}
+    worst = dict(worst)
+    worst["gather_lp"] = max(worst["gather_lp"], worst.pop("gather_lp_build"))
+    kernels = []
+    for name, replaces in (("gather_lp", "src/repro/kernels/lp_distance.py:384"),
+                           ("gather_lp_abandon", "src/repro/kernels/lp_distance.py:560"),
+                           ("pairwise_lp", "src/repro/kernels/lp_distance.py:136"),
+                           ("gather_lp_screen", "src/repro/kernels/lp_distance.py:761"),
+                           ("rowwise_lp", "src/repro/kernels/lp_distance.py:240"),
+                           ("lp_topk", "src/repro/kernels/lp_topk.py:60")):
+        r = rows[name]
+        check(launches[name] > 0, f"{name} launched no time on its path")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": worst[name], "ms": r["ms"], "device_ms": r["device_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+        if name == "pairwise_lp":   # the level-1 call at p = 2 beside p = 1's
+            p2 = bulk_rows["pairwise_lp"][1]
+            check(p2["case"] == "level 1 p=2.0", f"pairwise_lp p = 2 row: {p2['case']}")
+            kernels[-1].update({"p2_ms": p2["ms"], "p2_device_ms": p2["device_ms"],
+                                "p2_library_ms": p2["library_ms"],
+                                "p2_bound_ms": p2["bound_ms"]})
+    return kernels
+
+
 def main() -> int:
     import torch
 
@@ -1119,10 +1332,10 @@ def main() -> int:
     X, Q = phase_data(dev)
     truth = phase_truth(X, Q)
     host_index, host = phase_index(X, Q, truth)
-    bulk_index, build_counts = phase_index_bulk(X, Q, truth, host)
+    bulk_index, build_counts, build_shapes = phase_index_bulk(X, Q, truth, host)
     del X
     kernel_rows, worst = phase_kernels(host_index, Q)
-    bulk_rows, worst_bulk = phase_kernels_bulk(bulk_index, Q)
+    bulk_rows, worst_bulk = phase_kernels_bulk(bulk_index, Q, build_shapes)
     results, counts = phase_search(host_index, Q, truth, "search")
     phase_mixed(results, "mixed")
     bulk_results, _ = phase_search(bulk_index, Q, truth, "search_bulk")
@@ -1135,32 +1348,14 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
-    mix_row = kernel_rows[-1]
-    rows = {"gather_lp": mix_row["gather_lp"], "gather_lp_abandon": mix_row["gather_lp_abandon"],
-            "pairwise_lp": bulk_rows["pairwise_lp"][0],
-            "gather_lp_screen": bulk_rows["gather_lp_screen"][-1],
-            "rowwise_lp": next(r for r in rest_rows["rowwise_lp"] if r["p"] == "1.25"),
-            "lp_topk": next(r for r in rest_rows["lp_topk"] if r["p"] == 1.25 and r["k"] == K)}
-    launches = {"gather_lp": counts["gather_lp"], "gather_lp_abandon": counts["gather_lp_abandon"],
-                "pairwise_lp": build_counts["pairwise_lp"],
-                "gather_lp_screen": band_counts["gather_lp_screen"],
-                "rowwise_lp": rest_counts["rowwise_lp"], "lp_topk": rest_counts["lp_topk"]}
-    worst = {**worst, **worst_bulk, **worst_rest}
-    kernels = []
-    for name, replaces in (("gather_lp", "src/repro/kernels/lp_distance.py:384"),
-                           ("gather_lp_abandon", "src/repro/kernels/lp_distance.py:560"),
-                           ("pairwise_lp", "src/repro/kernels/lp_distance.py:136"),
-                           ("gather_lp_screen", "src/repro/kernels/lp_distance.py:761"),
-                           ("rowwise_lp", "src/repro/kernels/lp_distance.py:240"),
-                           ("lp_topk", "src/repro/kernels/lp_topk.py:60")):
-        r = rows[name]
-        check(launches[name] > 0, f"{name} launched no time on its path")
-        kernels.append({"name": name, "route": "cuda",
-                        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": worst[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r.get("library_ms")})
+    kernels = kernels_line(kernel_rows, bulk_rows, rest_rows,
+                           {"gather_lp": counts["gather_lp"],
+                            "gather_lp_abandon": counts["gather_lp_abandon"],
+                            "pairwise_lp": build_counts["pairwise_lp"],
+                            "gather_lp_screen": band_counts["gather_lp_screen"],
+                            "rowwise_lp": rest_counts["rowwise_lp"],
+                            "lp_topk": rest_counts["lp_topk"]},
+                           {**worst, **worst_bulk, **worst_rest})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})

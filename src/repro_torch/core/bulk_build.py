@@ -249,7 +249,10 @@ def nn_descent_pools(
     sample_t: int = 8,
     cand_cap: int | None = None,
     seed: int = 0,
+    interpret=None,
+    trajectory: bool = False,
     exact_seed_threshold: int = EXACT_SEED_THRESHOLD,
+    *,
     device=None,
 ):
     """Per-metric kNN candidate pools from one shared pass.
@@ -257,7 +260,10 @@ def nn_descent_pools(
     Returns {p: (ids (n, k) int64 ascending, d (n, k) f32)} on the device.
     At or below `exact_seed_threshold` rows the pools are exact kNN and no
     round runs; above it every node seeds from a random candidate block and
-    `rounds` NN-Descent iterations refine it.
+    `rounds` NN-Descent iterations refine it. With trajectory, also returns
+    the list of pool-id snapshots {p: ids} after the seed and after each
+    round, as the reference does. `interpret` is the reference's kernel
+    override, taken at its place and ignored.
     """
     x = _device_data(data, device)
     n = x.shape[0]
@@ -270,7 +276,8 @@ def nn_descent_pools(
     own = torch.arange(n, device=dev)[:, None]
 
     if n <= exact_seed_threshold:
-        return _exact_seed_pools(x, metric_ps, k)
+        pools = _exact_seed_pools(x, metric_ps, k)
+        return (pools, [_snapshot(pools)]) if trajectory else pools
 
     def score_and_merge(pools, cand):
         """The shared pass: one id block, one distance evaluation per metric."""
@@ -287,6 +294,7 @@ def nn_descent_pools(
     empty_d = torch.full((n, k), torch.inf, device=dev)
     pools = {p: (empty_ids, empty_d) for p in metric_ps}
     pools = score_and_merge(pools, torch.from_numpy(seed_cand).to(dev))
+    snaps = [_snapshot(pools)] if trajectory else []
 
     # 2. NN-Descent rounds over the joint pool: sample T forward or reverse
     # neighbours per node and take their whole join sets; the node's own
@@ -307,7 +315,14 @@ def nn_descent_pools(
         else:
             nn2 = base[mid].reshape(n, t * w)
         pools = score_and_merge(pools, torch.cat([base, nn2], dim=1))
-    return pools
+        if trajectory:
+            snaps.append(_snapshot(pools))
+    return (pools, snaps) if trajectory else pools
+
+
+def _snapshot(pools) -> dict:
+    """The pools' ids at one stage, copied: {p: ids (n, k)}."""
+    return {p: ids.clone() for p, (ids, _) in pools.items()}
 
 
 # ---------------------------------------------------------------------------

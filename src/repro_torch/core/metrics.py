@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.core.lp_ops import abs_pow, is_static_p, lp_root
 
+# p-values whose Lp distance evaluates without transcendentals.
+BASIC_PS = (1.0, 2.0)
 # p-values that need only a sqrt on top of basic arithmetic.
 SQRT_PS = (0.5, 1.5)
 
@@ -114,10 +116,11 @@ VPU_TRANSCENDENTAL = 7.0
 MXU_SPEEDUP = 64.0
 
 
-def lp_op_cost_per_element(p: float) -> float:
-    """Modelled per-element cost of |x-y|^p summation."""
+def lp_op_cost_per_element(p: float, use_mxu: bool = True) -> float:
+    """Modelled per-element cost of |x-y|^p summation; at p = 2 the
+    multiply-add is amortised by the product identity when use_mxu."""
     if p == 2.0:
-        return VPU_BASIC + 2.0 * VPU_BASIC / MXU_SPEEDUP
+        return VPU_BASIC + 2.0 * VPU_BASIC / (MXU_SPEEDUP if use_mxu else 1.0)
     if p == 1.0:
         return 3.0 * VPU_BASIC
     if p in SQRT_PS:
@@ -126,7 +129,16 @@ def lp_op_cost_per_element(p: float) -> float:
     return 4.0 * VPU_BASIC + 2.0 * VPU_TRANSCENDENTAL
 
 
-def lp_distance_cost_model(p: float, d: int) -> float:
+def lp_distance_cost_model(p: float, d: int, use_mxu: bool = True) -> float:
     """Modelled cost of one d-dim Lp distance (root included)."""
     root_cost = 0.0 if p == 1.0 else VPU_TRANSCENDENTAL
-    return lp_op_cost_per_element(p) * d + root_cost
+    return lp_op_cost_per_element(p, use_mxu=use_mxu) * d + root_cost
+
+
+def transcendental_op_count(p: float, d: int) -> int:
+    """Transcendental operations of one d-dim Lp distance (root excluded)."""
+    if p in BASIC_PS:
+        return 0
+    if p in SQRT_PS:
+        return d
+    return 2 * d   # log and exp per element

@@ -48,7 +48,10 @@ class UHNSWParams:
     threshold (target recall + 0.02); kappa: verification batch size (None
     -> K // 2); cutoff: G1 serves p <= cutoff, G2 the rest, per query row;
     ef: beam width (None -> 2t); max_hops: cap on loop trips per layer;
-    expand_width: W-way multi-expansion of the level-0 beam; abandon: the
+    expand_width: W-way multi-expansion of the level-0 beam; interpret:
+    taken at the reference's place (its Pallas dispatch override) and
+    ignored, since the port's wrappers dispatch on the tensor's device;
+    abandon: the
     early-abandoning verification (exact: same ids and distances as the
     full scan up to summation order); abandon_block_d: its dimension-block
     width (None -> `kernels.ops.pick_abandon_block_d`); compressed_band:
@@ -64,6 +67,7 @@ class UHNSWParams:
     ef: int | None = None
     max_hops: int = 4096
     expand_width: int = 1
+    interpret: bool | None = None   # the reference's kernel override; ignored
     abandon: bool = True
     abandon_block_d: int | None = None
     compressed_band: bool = False
@@ -271,7 +275,8 @@ def _verify_two_band_impl(Q, cand_ids, cand_base, X, band, p, k: int, kappa: int
             f32_rows / n_p_f, band_scan / (n_p_f * d))
 
 
-def verify_candidates(Q, cand_ids, X, p, k: int, kappa: int, tau: float, *,
+def verify_candidates(Q, cand_ids, X, p, k: int, kappa: int, tau: float,
+                      interpret: bool | None = None, *,
                       cand_base=None, base_p: float = 1.0, abandon: bool = True,
                       block_d: int | None = None, band=None, x_scan=None, scan_perm=None):
     """Early-terminated exact-Lp re-ranking (Algorithm 1 lines 7-11).
@@ -285,7 +290,8 @@ def verify_candidates(Q, cand_ids, X, p, k: int, kappa: int, tau: float, *,
     of the abandoning scan; None disables them. With abandon, `band` (an
     `index.compressed.CompressedBand`) switches to the two-band scan, and
     (x_scan, scan_perm) run the abandoning scan in energy order instead.
-    Candidate ids outside [0, n) are padding and score +inf.
+    Candidate ids outside [0, n) are padding and score +inf. `interpret`
+    is the reference's kernel override, taken at its place and ignored.
     """
     if not is_static_p(p):
         p = torch.broadcast_to(metrics.as_p_vec(p, Q.device), (Q.shape[0],))

@@ -54,6 +54,11 @@ class CompressedBand:
     def d(self) -> int:
         return int(self.codes.shape[1])
 
+    def nbytes(self) -> int:
+        """Band storage footprint (codes + scales + radii + perm), counted as
+        the reference counts it: 4 bytes for each entry of perm."""
+        return self.n * self.d + 3 * 4 * self.d
+
 
 def _host(X) -> np.ndarray:
     if torch.is_tensor(X):

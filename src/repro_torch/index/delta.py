@@ -68,8 +68,8 @@ class DeltaBuffer:
         self._vecs, self._ids, self._cache = [], [], None
         return vecs, ids
 
-    def search(self, Q: torch.Tensor, p, thresh: torch.Tensor | None = None,
-               block_d: int | None = None):
+    def search(self, Q: torch.Tensor, p, interpret: bool | None = None,
+               thresh: torch.Tensor | None = None, block_d: int | None = None):
         """Exact rooted Lp distances of every buffered vector to each query.
 
         Q (B, d) f32; p a float or (B,) array (row i under p[i]). Returns
@@ -84,6 +84,8 @@ class DeltaBuffer:
         never abandon a true top-k entry. Without it every query scores the
         whole buffer through the 1-D shared-ids form of
         `lp_gather_distance` (the pairwise kernel over the buffer once).
+        `interpret` is the reference's kernel override, taken at its place
+        and ignored.
         """
         b = Q.shape[0]
         dev = Q.device

@@ -26,12 +26,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of each source's launcher: (argtypes, restype is int = cudaError_t)
 LAUNCHERS = {
     "gather_lp": ("gather_lp_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "gather_lp_abandon": ("gather_lp_abandon_launch",
-                          [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "pairwise_lp": ("pairwise_lp_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    # the arguments packed in one int64 array, and the scalar p
+    "gather_lp_abandon": ("gather_lp_abandon_launch", [_P, _F]),
+    "pairwise_lp": ("pairwise_lp_launch", [_P, _P, _P, _F, _P, _I, _I, _I, _P]),
     "rowwise_lp": ("rowwise_lp_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "lp_topk": ("lp_topk_launch", [_P] * 5 + [_I, _I, _I, _I, _P]),
     "gather_lp_screen": ("gather_lp_screen_launch",
@@ -98,7 +99,13 @@ def build_all() -> dict[str, tuple[ctypes.CDLL, str]]:
     return out
 
 
+_LAUNCHERS: dict = {}
+
+
 def launcher(name: str):
     """The ctypes function that launches kernel `name` (built at first use)."""
-    cdll, _ = build_all()[name]
-    return getattr(cdll, LAUNCHERS[name][0])
+    fn = _LAUNCHERS.get(name)
+    if fn is None:
+        cdll, _ = build_all()[name]
+        fn = _LAUNCHERS[name] = getattr(cdll, LAUNCHERS[name][0])
+    return fn

@@ -31,8 +31,7 @@
 
 namespace {
 
-constexpr int kTile = 128;    // candidates scored per merge
-constexpr int kMaxK = 64;     // largest k (the wrapper checks)
+constexpr int kTile = 128;    // candidates scored per merge (kernels/lp_topk.py TILE)
 
 // True when entry (da, id ia, position pa) orders before entry (db, ib, pb): empty slots
 // (id -1) after every candidate, NaN after every number, then by distance, then by
@@ -54,10 +53,10 @@ lp_topk_kernel(const float* __restrict__ q, const float* __restrict__ c,
                int* __restrict__ out_i, int C, int d, int k, bool vec4) {
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);       // (d,) the query row
-  float* md = qs + ((d + 3) & ~3);                     // (k + kTile,) running list, then tile
-  int* mi = reinterpret_cast<int*>(md + kMaxK + kTile);  // their candidate ids
-  float* nd = reinterpret_cast<float*>(mi + kMaxK + kTile);  // (k,) the merged list
-  int* ni = reinterpret_cast<int*>(nd + kMaxK);
+  float* md = qs + ((d + 3) & ~3);                   // (k + kTile,) running list, then tile
+  int* mi = reinterpret_cast<int*>(md + k + kTile);   // their candidate ids
+  float* nd = reinterpret_cast<float*>(mi + k + kTile);  // (k,) the merged list
+  int* ni = reinterpret_cast<int*>(nd + k);
 
   const int b = blockIdx.x;
   const int warp = threadIdx.x >> 5;
@@ -110,16 +109,17 @@ lp_topk_kernel(const float* __restrict__ q, const float* __restrict__ c,
 }  // namespace
 
 // q (B, d) f32, c (B, C, d) f32, p (B,) f32 -> out_d (B, k) f32 root-free sums, out_i
-// (B, k) int32 candidate indices, all contiguous on the device; 1 <= k <= min(C, 64).
-// Launches on `stream`; returns cudaGetLastError(), or cudaErrorInvalidValue for a k the
-// kernel does not take.
+// (B, k) int32 candidate indices, all contiguous on the device; 1 <= k <= C. The running
+// list is sized by k in dynamic shared memory (8 (2k + kTile) bytes beside the query row),
+// opted in above 48 KB. Launches on `stream`; returns cudaGetLastError(), the opt-in's
+// error for a k whose list does not fit, or cudaErrorInvalidValue for k outside [1, C].
 extern "C" int lp_topk_launch(const void* q, const void* c, const void* p, void* out_d,
                               void* out_i, int B, int C, int d, int k, void* stream) {
-  if (k < 1 || k > kMaxK || k > C) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || k > C) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   const size_t smem = static_cast<size_t>((d + 3) & ~3) * sizeof(float) +
-                      static_cast<size_t>(kMaxK + kTile) * (sizeof(float) + sizeof(int)) +
-                      static_cast<size_t>(kMaxK) * (sizeof(float) + sizeof(int));
+                      static_cast<size_t>(k + kTile) * (sizeof(float) + sizeof(int)) +
+                      static_cast<size_t>(k) * (sizeof(float) + sizeof(int));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         lp_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

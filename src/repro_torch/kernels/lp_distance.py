@@ -15,6 +15,9 @@ kernel; `launch_counts` reads all six.
 
 from __future__ import annotations
 
+import ctypes
+import threading
+
 import torch
 
 from repro_torch.core.lp_ops import is_static_p
@@ -49,6 +52,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
+    if t.is_cuda:
+        return False
     if t.device.type == "cpu":
         return True
     if t.device.type != "cuda":
@@ -70,8 +75,28 @@ def _p_rows(p, b: int, device) -> torch.Tensor:
     return p.expand(b).contiguous() if p.numel() == 1 else p.contiguous()
 
 
-def _stream() -> int:
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(t: torch.Tensor | None = None) -> int:
+    """The current CUDA stream (of t's device) as a raw pointer, through the
+    cheap private accessor where this torch has it."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.get_device() if t is not None else torch.cuda.current_device())
     return torch.cuda.current_stream().cuda_stream
+
+
+_PACKED = threading.local()
+
+
+def _packed(*args) -> int:
+    """The address of this thread's int64 argument array, filled with args
+    (ints): one ctypes argument in place of many."""
+    buf = getattr(_PACKED, "buf", None)
+    if buf is None:
+        buf = _PACKED.buf = (ctypes.c_int64 * 17)()
+    buf[:] = args
+    return ctypes.addressof(buf)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -83,20 +108,28 @@ def pairwise_lp(q: torch.Tensor, x: torch.Tensor, p) -> torch.Tensor:
     """Root-free all-pairs sum_j |q[b, j] - x[i, j]|^p -> (B, N) float32.
 
     q (B, d) f32, x (N, d) f32, p a float or (B,) tensor. Rows under p = 2
-    take the product identity |q|^2 + |x|^2 - 2 q.x, clamped at 0.
+    take the product identity |q|^2 + |x|^2 - 2 q.x, clamped at 0. A
+    scalar p goes in as a kernel argument.
     """
     if _on_cpu(q):
         return pairwise_lp_ref(q, x, p)
     b, d = q.shape
     n = x.shape[0]
-    q = q.contiguous()
-    x = x.contiguous()
-    _check("q", q, torch.float32, (b, d), x.device)
-    _check("x", x, torch.float32, (n, d), q.device)
-    pv = _p_rows(p, b, q.device)
+    if not q.is_contiguous():
+        q = q.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not (q.dtype == x.dtype == torch.float32 and x.device == q.device and x.shape[1] == d):
+        _check("q", q, torch.float32, (b, d), x.device)
+        _check("x", x, torch.float32, (n, d), q.device)
+    if is_static_p(p):
+        p_ptr, p_scalar = None, float(p)
+    else:
+        pv = _p_rows(p, b, q.device)
+        p_ptr, p_scalar = pv.data_ptr(), 0.0
     out = torch.empty((b, n), dtype=torch.float32, device=q.device)
     err = _build.launcher("pairwise_lp")(
-        q.data_ptr(), x.data_ptr(), pv.data_ptr(), out.data_ptr(), b, n, d, _stream())
+        q.data_ptr(), x.data_ptr(), p_ptr, p_scalar, out.data_ptr(), b, n, d, _stream(q))
     pairwise_lp.launches += 1
     _raise_on(err, "pairwise_lp")
     return out
@@ -163,6 +196,11 @@ def gather_lp_abandon(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor,
     freezes the row, +inf never abandons); sb (B, C) f32 the base-metric
     power sums (0 disables the bounds); base_p 1.0 or 2.0 names their
     metric; block_d must divide d. Dead and padding candidates score +inf.
+    ids (int32) and sb may be column slices of wider tensors: the kernel
+    reads them through their row strides, so the verification loop's
+    slices go in without a copy; a scalar p goes in as a kernel argument.
+    The verification loop calls this once per kappa batch, so the checks
+    are kept to cheap attribute reads (the message is built on failure).
     """
     if _on_cpu(q):
         return gather_lp_abandon_ref(q, ids, x, thresh, sb, p, base_p, block_d)
@@ -173,23 +211,44 @@ def gather_lp_abandon(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"base_p must be 1.0 or 2.0, got {base_p}")
     if block_d <= 0 or d % block_d:
         raise ValueError(f"block_d={block_d} does not divide d={d}")
-    ids = ids.to(torch.int32).contiguous()
-    q = q.contiguous()
-    x = x.contiguous()
-    thresh = thresh.to(torch.float32).contiguous()
-    sb = sb.to(torch.float32).contiguous()
-    _check("q", q, torch.float32, (b, d), x.device)
-    _check("x", x, torch.float32, (n, d), q.device)
-    _check("ids", ids, torch.int32, (b, c), q.device)
-    _check("thresh", thresh, torch.float32, (b,), q.device)
-    _check("sb", sb, torch.float32, (b, c), q.device)
-    pv = _p_rows(p, b, q.device)
-    out = torch.empty((b, c), dtype=torch.float32, device=q.device)
-    nd = torch.empty((b, c), dtype=torch.int32, device=q.device)
-    err = _build.launcher("gather_lp_abandon")(
-        ids.data_ptr(), q.data_ptr(), thresh.data_ptr(), sb.data_ptr(), x.data_ptr(),
-        pv.data_ptr(), out.data_ptr(), nd.data_ptr(), b, c, n, d, block_d,
-        1 if base_p == 1.0 else 0, _stream())
+    if ids.dtype != torch.int32:
+        ids = ids.to(torch.int32)
+    ids_stride = ids.stride()
+    if ids_stride[1] != 1:
+        ids = ids.contiguous()
+        ids_stride = ids.stride()
+    sb_stride = sb.stride()
+    if sb_stride[1] != 1:
+        sb = sb.contiguous()
+        sb_stride = sb.stride()
+    if not q.is_contiguous():
+        q = q.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not thresh.is_contiguous():
+        thresh = thresh.contiguous()
+    di = q.get_device()
+    if is_static_p(p):
+        pv, p_ptr, p_scalar = None, 0, float(p)
+    else:
+        pv = p if (torch.is_tensor(p) and p.dtype == torch.float32 and p.get_device() == di
+                   and p.shape == (b,) and p.is_contiguous()) else _p_rows(p, b, q.device)
+        p_ptr, p_scalar = pv.data_ptr(), 0.0
+    if not (x.dtype == q.dtype == sb.dtype == thresh.dtype == torch.float32
+            and x.get_device() == ids.get_device() == sb.get_device() == thresh.get_device() == di
+            and x.shape[1] == d and ids.shape[0] == b and sb.shape == (b, c)
+            and thresh.shape == (b,)):
+        _check("q", q, torch.float32, (b, d), x.device)
+        _check("x", x, torch.float32, (n, d), q.device)
+        _check("ids", ids, torch.int32, (b, c), q.device)
+        _check("thresh", thresh, torch.float32, (b,), q.device)
+        _check("sb", sb, torch.float32, (b, c), q.device)
+    out = q.new_empty(b, c)
+    nd = ids.new_empty(b, c)
+    err = _build.launcher("gather_lp_abandon")(_packed(
+        ids.data_ptr(), ids_stride[0], q.data_ptr(), thresh.data_ptr(), sb.data_ptr(),
+        sb_stride[0], x.data_ptr(), p_ptr, out.data_ptr(), nd.data_ptr(), b, c, n, d,
+        block_d, 1 if base_p == 1.0 else 0, _stream(q)), p_scalar)
     gather_lp_abandon.launches += 1
     _raise_on(err, "gather_lp_abandon")
     return out, nd

@@ -18,7 +18,20 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.lp_distance import _check, _on_cpu, _p_rows, _raise_on, _stream
 from repro_torch.kernels.ref import lp_topk_ref
 
-MAX_K = 64   # the running list the kernel keeps in shared memory
+TILE = 128                  # candidates the kernel scores per merge (csrc/lp_topk.cu kTile)
+SMEM_OPTIN_BYTES = 232_448  # shared memory a block may opt into on an H100 (227 KB)
+
+
+def smem_bytes(d: int, k: int) -> int:
+    """Dynamic shared memory of one lp_topk block: the query row, the
+    running list with one tile behind it, and the merged list (as
+    csrc/lp_topk.cu lays them out)."""
+    return 4 * ((d + 3) & ~3) + 8 * (k + TILE) + 8 * k
+
+
+# The reference's plain version under its own name (repro.kernels.lp_topk.ref_lp_topk):
+# rowwise distances, then the k smallest in ascending order.
+ref_lp_topk = lp_topk_ref
 
 
 def lp_topk(q: torch.Tensor, c: torch.Tensor, p: float, k: int, root: bool = True):
@@ -27,19 +40,24 @@ def lp_topk(q: torch.Tensor, c: torch.Tensor, p: float, k: int, root: bool = Tru
     to the lower index.
 
     q (B, d) f32, c (B, C, d) f32, p one scalar (as in the reference, which
-    compiles one kernel per p), 1 <= k <= min(C, 64). With root the dists
-    are Lp distances, else root-free power sums.
+    compiles one kernel per p), 1 <= k <= C. With root the dists are Lp
+    distances, else root-free power sums. On the card the running list
+    lives in shared memory; a k whose list does not fit (k in the
+    thousands at d = 512) raises with the limit.
     """
     if not is_static_p(p):
         raise ValueError("lp_topk takes one scalar p for the whole batch")
     b, cc, d = c.shape
-    if k > MAX_K:
-        raise ValueError(f"lp_topk keeps at most k = {MAX_K} (got k = {k})")
     if not 1 <= k <= cc:
         raise ValueError(f"k = {k} must lie in [1, C = {cc}]")
     p = float(p)
     if _on_cpu(q):
         return lp_topk_ref(q, c, p, k, root)
+    limit = getattr(torch.cuda.get_device_properties(q.device), "shared_memory_per_block_optin",
+                    SMEM_OPTIN_BYTES)
+    if smem_bytes(d, k) > limit:
+        raise ValueError(f"lp_topk: k = {k} at d = {d} needs {smem_bytes(d, k)} bytes of shared "
+                         f"memory, more than the {limit} a block may have")
     q = q.contiguous()
     c = c.contiguous()
     _check("q", q, torch.float32, (b, d), c.device)

@@ -3,7 +3,9 @@
 Counterpart of the dispatchers in `repro.kernels.ops`. The reference pads
 and tiles for the TPU's VMEM; here the kernels take any (B, C), so these
 functions only normalise p, pick the abandon block width and apply the
-outer root. Device dispatch lives in the wrappers of `kernels.lp_distance`
+outer root. Each takes the reference's parameters in the reference's
+order; `interpret`, `block_b` and `block_c` (its Pallas dispatch override
+and VMEM tiles) are taken and ignored. Device dispatch lives in the wrappers of `kernels.lp_distance`
 (CUDA -> kernel, CPU -> plain version), looked up at call time.
 """
 
@@ -28,7 +30,8 @@ def _root(d: torch.Tensor, p):
 
 
 def lp_gather_distance(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor, p,
-                       root: bool = False) -> torch.Tensor:
+                       root: bool = False, interpret: bool | None = None,
+                       block_b: int | None = None, block_c: int | None = None) -> torch.Tensor:
     """Exact-Lp distances for per-query candidate id blocks -> (B, C) f32.
 
     ids (B, C): ids outside [0, n) are padding and score +inf. ids may also
@@ -57,7 +60,8 @@ def lp_rowwise_distance(q: torch.Tensor, c: torch.Tensor, p, root: bool = True):
     return _root(d, p) if root else d
 
 
-def lp_pairwise_distance(q: torch.Tensor, x: torch.Tensor, p, root: bool = False):
+def lp_pairwise_distance(q: torch.Tensor, x: torch.Tensor, p, root: bool = False,
+                         interpret: bool | None = None):
     """All-pairs Lp distances q (B, d) x x (N, d) -> (B, N) f32, through the
     pairwise kernel. p: a float, or a (B,) tensor scoring row i under p[i]."""
     p = _p_arg(p, q.shape[0], q.device)
@@ -77,7 +81,9 @@ def pick_abandon_block_d(d: int) -> int:
 
 def lp_gather_abandon(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor,
                       thresh: torch.Tensor, sb: torch.Tensor, p, base_p: float = 1.0,
-                      root: bool = False, block_d: int | None = None):
+                      root: bool = False, interpret: bool | None = None,
+                      block_b: int | None = None, block_c: int | None = None,
+                      block_d: int | None = None):
     """Early-abandoning exact-Lp scoring (DESIGN.md §8) -> (dists, nd).
 
     thresh (B,): per-row bound in power-sum space (+inf = no abandonment,
@@ -94,7 +100,9 @@ def lp_gather_abandon(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor,
 
 def lp_gather_screen(q: torch.Tensor, ids: torch.Tensor, codes: torch.Tensor,
                      scale: torch.Tensor, radius: torch.Tensor, thresh: torch.Tensor,
-                     sb: torch.Tensor, p, base_p: float = 1.0, block_d: int | None = None):
+                     sb: torch.Tensor, p, base_p: float = 1.0, interpret: bool | None = None,
+                     block_b: int | None = None, block_c: int | None = None,
+                     block_d: int | None = None):
     """Compressed-band candidate screen (DESIGN.md §10) -> (keep, nd).
 
     q (B, d) in the band's coordinate order (Q[:, band.perm]); thresh (B,)

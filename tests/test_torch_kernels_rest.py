@@ -22,9 +22,10 @@ import pytest
 import torch
 
 from repro.kernels import pallas_rowwise_lp
-from repro.kernels.lp_topk import pallas_lp_topk
+from repro.kernels.lp_topk import pallas_lp_topk, ref_lp_topk
 from repro_torch.kernels import lp_distance
-from repro_torch.kernels.lp_topk import MAX_K, lp_topk
+from repro_torch.kernels import lp_topk as lp_topk_mod
+from repro_torch.kernels.lp_topk import lp_topk
 from repro_torch.kernels.ops import lp_rowwise_distance
 from repro_torch.kernels.ref import lp_topk_ref, rowwise_lp_ref
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -147,8 +148,10 @@ def test_lp_topk_ties_go_to_the_lower_index(p):
 def test_lp_topk_limits_and_plain_version_without_counting():
     q = torch.zeros((2, 8))
     c = torch.zeros((2, 100, 8))
-    with pytest.raises(ValueError, match=f"at most k = {MAX_K}"):
-        lp_topk(q, c, 1.0, MAX_K + 1)
+    with pytest.raises(ValueError, match="C = 100"):
+        lp_topk(q, c, 1.0, 101)
+    with pytest.raises(ValueError, match="C = 100"):
+        lp_topk(q, c, 1.0, 0)
     with pytest.raises(ValueError, match="C = 3"):
         lp_topk(q, c[:, :3], 1.0, 4)
     with pytest.raises(ValueError, match="one scalar p"):
@@ -163,3 +166,36 @@ def test_lp_topk_limits_and_plain_version_without_counting():
                                   rowwise_lp_ref(q, c, 0.8).numpy())
     counts = lp_distance.launch_counts()
     assert counts["lp_topk"] == 0 and counts["rowwise_lp"] == 0
+
+
+@pytest.mark.parametrize("p", [0.5, 1.3, 2.0])
+@pytest.mark.parametrize("k", [65, 100, 300])
+def test_lp_topk_takes_any_k_up_to_c(k, p):
+    """k above the 64 that the port once capped, up to k = C = 300: ids and
+    dists against the reference's plain `ref_lp_topk` and its Pallas kernel
+    in interpret mode; the port's own `ref_lp_topk` is its plain version."""
+    rng = np.random.default_rng(k)
+    b, c, d = 3, 300, 64
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    cands = rng.standard_normal((b, c, d)).astype(np.float32)
+    got_d, got_i = lp_topk(torch.from_numpy(q), torch.from_numpy(cands), p, k)
+    assert got_d.shape == (b, k) and got_i.shape == (b, k)
+    all_d = lp_rowwise_distance(torch.from_numpy(q), torch.from_numpy(cands), p).numpy()
+    for want_d, want_i in (ref_lp_topk(jnp.asarray(q), jnp.asarray(cands), p, k),
+                           pallas_lp_topk(jnp.asarray(q), jnp.asarray(cands), p, k,
+                                          interpret=True)):
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=REL, atol=1e-5)
+    np.testing.assert_array_equal(np.sort(got_i.numpy()[:, :k], 1),
+                                  np.sort(np.argsort(all_d, 1, kind="stable")[:, :k], 1))
+    port_d, port_i = lp_topk_mod.ref_lp_topk(torch.from_numpy(q), torch.from_numpy(cands), p, k)
+    np.testing.assert_array_equal(port_i.numpy(), got_i.numpy())
+    np.testing.assert_array_equal(port_d.numpy(), got_d.numpy())
+
+
+def test_lp_topk_shared_memory_grows_with_k():
+    """The kernel's running list is sized by k: at C = 300 every k fits in a
+    block's shared memory, and the wrapper's limit is the H100's opt-in."""
+    assert lp_topk_mod.smem_bytes(512, 300) <= 48 * 1024
+    assert lp_topk_mod.smem_bytes(512, 65) > lp_topk_mod.smem_bytes(512, 64)
+    assert lp_topk_mod.smem_bytes(512, 20_000) > lp_topk_mod.SMEM_OPTIN_BYTES

@@ -315,3 +315,22 @@ def test_kernel_sources_match_their_ctypes_signatures():
         assert m, f"{symbol} missing from {name}.cu"
         assert len(m.group(1).split(",")) == len(argtypes), symbol
         assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_packed_launch_arguments_round_trip():
+    """The gather_lp_abandon launcher takes its arguments as one int64 array
+    (csrc/gather_lp_abandon.cu): pointers, strides and sizes come back as
+    given, and each thread fills its own array."""
+    import ctypes
+    import threading
+
+    args = [2**47 + 16, 300, 2**40, 3, 7, 1, 2**33, 0, 5, 6, 256, 5, 78_306, 512, 32, 1, 99]
+    addr = lp_distance._packed(*args)
+    got = list((ctypes.c_int64 * 17).from_address(addr))
+    assert got == args
+    other = []
+    t = threading.Thread(target=lambda: other.append(lp_distance._packed(*range(17))))
+    t.start()
+    t.join()
+    assert other[0] != addr
+    assert list((ctypes.c_int64 * 17).from_address(addr)) == got
