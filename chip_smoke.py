@@ -15,15 +15,16 @@ counts set to 0 just before it and read just after:
      gather_lp_abandon);
   2. the shared-pass bulk build (phase `index_bulk`): UHNSW.build(
      method="bulk", m = 16), both graphs from one NN-Descent pass on the card
-     (pairwise_lp, gather_lp), then the same searches on its graphs (phase
-     `search_bulk`);
+     (pairwise_lp, gather_lp, and gather_lp_multi, which scores each block of
+     the shared pass under both metrics in one launch), then the same
+     searches on its graphs (phase `search_bulk`);
   3. the compressed band (phase `band`): the bulk index searched with
      compressed_band=True (gather_lp_screen, gather_lp), then with
      energy_perm=True, at every p and the mixed batch;
   4. the rowwise and fused top-k entry points (phase `kernels_rest`):
      kernels.ops.lp_rowwise_distance and kernels.lp_topk.lp_topk on the
      shared-pass index's 300 candidates a query (rowwise_lp, lp_topk),
-     with tie cases and a block of 257 candidates;
+     with tie cases, NaN and +inf rows, and a block of 257 candidates;
   5. the sharded index (phase `sharded`): ShardedUHNSW.build(4 segments,
      m = 16, method="bulk"), searched under the independent, two_phase and
      round_robin policies at p in {0.5, 1.25, 2.0} and the mixed batch
@@ -35,8 +36,11 @@ counts set to 0 just before it and read just after:
 It builds the CUDA kernels with nvcc first, holds each kernel against its
 plain PyTorch version on the card at the paths' shapes and at shapes the
 paths' defaults do not reach (pairwise_lp at ragged shapes, with its level
-calls exactly symmetric; gather_lp_abandon at block_d 8 and 16, C = 1 and
-37, on strided id slices; lp_topk at k = 65 and k = C), times each kernel
+calls exactly symmetric; gather_lp_multi on the build's own round-2 block
+and on random ids, with gather_lp's bits, and at d = 37, general p and
+small slabs; gather_lp_abandon at block_d 8 and 16, C = 1 and 37, on
+strided id slices; lp_topk at k = 65 and k = C, with NaN and +inf rows,
+and at d = 37 and 1,100), times each kernel
 around its wrapper (`ms`) and on the device alone (`device_ms`, calls
 captured in a CUDA graph), measures recall
 against a brute-force top-k and checks it against the same search with the
@@ -185,7 +189,7 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 @contextmanager
 def plain_versions():
-    """Routes the paths' four kernel wrappers to their plain versions for
+    """Routes the paths' five kernel wrappers to their plain versions for
     the comparison runs; the kernels' own code is not touched."""
     import torch
 
@@ -201,8 +205,12 @@ def plain_versions():
         keep, nd = ref.gather_lp_screen_ref(*args)
         return keep.to(torch.int32), nd
 
+    def multi_ref(q, ids, x, ps):
+        return torch.stack([ref.gather_lp_ref(q, ids, x, p) for p in ps])
+
     plain = {"pairwise_lp": uncounted(ref.pairwise_lp_ref),
              "gather_lp": uncounted(ref.gather_lp_ref),
+             "gather_lp_multi": uncounted(multi_ref),
              "gather_lp_abandon": uncounted(ref.gather_lp_abandon_ref),
              "gather_lp_screen": uncounted(screen_ref)}
     saved = {name: getattr(lp_distance, name) for name in plain}
@@ -217,24 +225,36 @@ def plain_versions():
 
 @contextmanager
 def build_gather_shapes():
-    """Records the (B, C) shape of every per-row gather call the bulk build
-    makes through `lp_gather_distance` (its scoring passes; launches are
-    counted as usual)."""
+    """Records what the bulk build's gather calls score: the (B, C) shape
+    of every per-row single-p call it makes through `lp_gather_distance`
+    (the level passes), the (B, C, ps) of every multi-p call of its shared
+    scoring pass, and, of the shared pass's third block (the second
+    NN-Descent round's), its node rows and candidate ids, the build's real
+    traffic. Launches are counted as usual."""
     from repro_torch.core import bulk_build
 
-    shapes = []
-    fn = bulk_build.lp_gather_distance
+    rec = {"shapes": [], "multi": [], "round2": None}
+    single, multi = bulk_build.lp_gather_distance, bulk_build._score_ids_multi
 
     def record(q, ids, x, p, *args, **kwargs):
         if ids.ndim == 2:
-            shapes.append(tuple(ids.shape))
-        return fn(q, ids, x, p, *args, **kwargs)
+            rec["shapes"].append(tuple(ids.shape))
+        return fn_single(q, ids, x, p, *args, **kwargs)
 
+    def record_multi(x, node_rows, ids, ps):
+        if len(rec["multi"]) == 2:
+            rec["round2"] = (node_rows.clone(), ids.clone())
+        rec["multi"].append((*ids.shape, tuple(ps)))
+        return multi(x, node_rows, ids, ps)
+
+    fn_single = single
     bulk_build.lp_gather_distance = record
+    bulk_build._score_ids_multi = record_multi
     try:
-        yield shapes
+        yield rec
     finally:
-        bulk_build.lp_gather_distance = fn
+        bulk_build.lp_gather_distance = single
+        bulk_build._score_ids_multi = multi
 
 
 def counted(fn, *args, **kwargs):
@@ -370,19 +390,26 @@ def phase_index_bulk(X, Q, truth, host):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = _now()
-    with build_gather_shapes() as shapes:
+    with build_gather_shapes() as rec:
         index, launched = counted(UHNSW.build, X, m=M, seed=0, method="bulk")
     seconds = _now() - t0
     peak = torch.cuda.max_memory_allocated() / 2**20
     check(launched["pairwise_lp"] > 0 and launched["gather_lp"] > 0,
           f"bulk build did not launch its kernels: {launched}")
+    # the shared pass: the seed block and each NN-Descent round scored under
+    # both metrics in multi-p launches (one each at this size on the card)
+    check(launched["gather_lp_multi"] >= len(rec["multi"]) > 0 and rec["round2"] is not None
+          and all(ps == (1.0, 2.0) for *_, ps in rec["multi"]),
+          f"bulk build's shared pass: {launched['gather_lp_multi']} multi-p launches for "
+          f"{rec['multi']}")
     stats = graph_stats(index, Q, truth)
     emit({"phase": "index_bulk", "method": "bulk", "seconds": seconds, **stats,
-          "peak_device_mib": peak, "launches": launched, "gather_shapes": shapes,
+          "peak_device_mib": peak, "launches": launched, "gather_shapes": rec["shapes"],
+          "gather_multi_calls": [[b, c, list(ps)] for b, c, ps in rec["multi"]],
           "host_builder": {"seconds": host["seconds"],
                            "peak_device_mib": host["peak_device_mib"],
                            **host["graphs"]}})
-    return index, launched, shapes
+    return index, launched, rec
 
 
 def phase_kernels(index, Q):
@@ -751,49 +778,127 @@ def screen_tight(Qp, batch, band, sb, p, base, bd, label) -> dict:
     return out
 
 
-def gather_build_case(X, shapes) -> dict:
-    """gather_lp at the bulk build's own scoring shape: the (B, C) it calls
-    most often (ties to the larger), random candidate ids into the corpus
-    for each of the first B rows. The kernel's output is held against the
-    plain version on its first PLAIN_ROWS rows (the plain version builds a
-    (B, C, d) block, too large at the full shape), which is also what
-    `plain_ms` times."""
+def block_stats(ids, n: int) -> dict:
+    """What a candidate block asks of the gather: distinct ids per row (the
+    rows a node's block needs), distinct rows per window of 1,024 nodes
+    (the rows a tile of nodes shares), and the share of padding ids."""
+    import torch
+
+    valid = (ids >= 0) & (ids < n)
+    key = torch.where(valid, ids.long(), -1)
+    srt = key.sort(1).values
+    heads = torch.cat([srt[:, :1] >= 0, (srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] >= 0)], 1)
+    per_row = heads.sum(1).double()
+    windows = [int(torch.unique(key[w:w + 1024][valid[w:w + 1024]]).numel())
+               for w in range(0, ids.shape[0], 1024)]
+    return {"slots_per_row": ids.shape[1], "distinct_per_row_mean": float(per_row.mean()),
+            "distinct_per_row_min": int(per_row.min()), "distinct_per_row_max": int(per_row.max()),
+            "slots_per_distinct": float(valid.sum() / per_row.sum()),
+            "distinct_rows_per_1024_nodes_mean": float(np.mean(windows)),
+            "distinct_rows_per_1024_nodes_min": int(np.min(windows)),
+            "padding_share": float((~valid).double().mean()),
+            "distinct_pairs": int(per_row.sum()), "distinct_rows": int(torch.unique(key[valid]).numel())}
+
+
+def gather_build_block(q, ids, X, label: str) -> dict:
+    """gather_lp at the bulk build's scoring shape, both metrics of the
+    shared pass: the multi-p kernel's one launch (p = 1 and 2) against the
+    single-p kernel's two launches on the same ids, which must give the
+    same bits, and against the plain version on its first PLAIN_ROWS rows
+    (the plain version builds a (B, C, d) block, too large at the full
+    shape), which is also what `plain_ms` times."""
     import torch
 
     from repro_torch.kernels import lp_distance as kd
     from repro_torch.kernels import ref
 
     n, d = X.shape
-    b, c = max(set(shapes), key=lambda s: (shapes.count(s), s[0] * s[1]))
-    rng = np.random.default_rng(1)
-    q = X[:b].contiguous()
-    ids = torch.from_numpy(rng.integers(0, n, (b, c)).astype(np.int32)).to(X.device)
-    got = kd.gather_lp(q, ids, X, 1.0)
+    b, c = ids.shape
+    ps = (1.0, 2.0)
+    got = kd.gather_lp_multi(q, ids, X, ps)
+    singles = [kd.gather_lp(q, ids, X, p) for p in ps]
     rows = slice(0, PLAIN_ROWS)
-    want = ref.gather_lp_ref(q[rows], ids[rows], X, 1.0)
+    want = [ref.gather_lp_ref(q[rows], ids[rows], X, p) for p in ps]
     _sync()
-    rel, abs_err, mis = rel_err(got[rows], want)
-    check(mis == 0 and rel <= RTOL, f"gather_lp build shape: rel {rel} mismatch {mis}")
-    # each input read once: the distinct corpus rows the ids name, the query
-    # rows, the ids; the output written once. (Counting every gathered row,
-    # as the kernel reads them, would give `gathered_bytes_ms`.)
-    rows_named = int(torch.unique(ids).numel())
-    bnd = bound(4 * (rows_named * d + q.numel() + 2 * b * c),
-                float(b * c * d * OPS_PER_ELEMENT[1.0]))
-    return {"case": "build scoring, p=1", "shape": [b, c, d], "calls_at_shape": shapes.count((b, c)),
-            "build_calls": len(shapes), "distinct_shapes": sorted(set(shapes)),
-            "max_rel_err": rel, "max_abs_err": abs_err,
-            **kernel_ms(lambda: kd.gather_lp(q, ids, X, 1.0), reps=10, calls=5),
+    same = all(bool(torch.equal(got[i], singles[i])) for i in range(len(ps)))
+    check(same, f"gather_lp build {label}: the multi-p kernel's bits differ from gather_lp's")
+    errs = [rel_err(got[i, rows], want[i]) for i in range(len(ps))]
+    rel, abs_err, mis = max(e[0] for e in errs), max(e[1] for e in errs), sum(e[2] for e in errs)
+    check(mis == 0 and rel <= RTOL, f"gather_lp build {label}: rel {rel} mismatch {mis}")
+    stats = block_stats(ids, n)
+    # each input read once: the distinct corpus rows the block names, the
+    # node rows, the ids; both outputs written once. Operations: each
+    # distinct (node, id) pair's d elements, a subtract and an abs shared by
+    # the two metrics, then an add (L1) and an FMA (L2).
+    ops_pair = OPS_PER_ELEMENT[1.0] + OPS_PER_ELEMENT[2.0] - 2
+    bnd = bound(4 * (stats["distinct_rows"] * d + q.numel() + b * c + len(ps) * b * c),
+                float(stats["distinct_pairs"]) * d * ops_pair)
+    fused = kernel_ms(lambda: kd.gather_lp_multi(q, ids, X, ps), reps=10, calls=5)
+    old = [kernel_ms(lambda: kd.gather_lp(q, ids, X, p), reps=10, calls=5) for p in ps]
+    slab_rows = kd.SLAB_BYTES // (4 * d)
+    plan_ms = device_ms(lambda: kd.gather_plan(ids, n, slab_rows), calls=5)
+    return {"case": f"build scoring, {label} ids, p = 1 and 2", "shape": [b, c, d],
+            "block": stats, "bits_equal_gather_lp": same, "max_rel_err": rel,
+            "max_abs_err": abs_err, "ms": fused["ms"], "device_ms": fused["device_ms"],
+            "plan_device_ms": plan_ms, "slab_rows": slab_rows,
+            "gather_lp_two_launches_ms": old[0]["ms"] + old[1]["ms"],
+            "gather_lp_two_launches_device_ms": old[0]["device_ms"] + old[1]["device_ms"],
+            "gather_lp_p1_device_ms": old[0]["device_ms"],
+            "gather_lp_p2_device_ms": old[1]["device_ms"],
             "plain_rows": PLAIN_ROWS,
-            "plain_ms_on_plain_rows": median_ms(lambda: ref.gather_lp_ref(q[rows], ids[rows], X,
-                                                                          1.0), reps=5),
+            "plain_ms_on_plain_rows": median_ms(
+                lambda: [ref.gather_lp_ref(q[rows], ids[rows], X, p) for p in ps], reps=5),
             "bound_ms": bnd[0], "bound_by": bnd[1],
             "gathered_bytes_ms": 4 * b * c * d / HBM_BYTES_PER_S * 1e3, "library_ms": None}
 
 
-def phase_kernels_bulk(index, Q, build_shapes):
+def gather_multi_cases(X) -> dict:
+    """gather_lp_multi at shapes the build's defaults do not reach, each
+    equal to gather_lp's bits at its p and within RTOL of the plain
+    version: d = 37 (rows not 16-byte aligned: 4-byte loads), one p and
+    two general p, small slabs (many spans a row, padding at both ends),
+    long runs of one id and an all-padding row."""
+    import torch
+
+    from repro_torch.kernels import lp_distance as kd
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(3)
+    out = {}
+    saved = kd.SLAB_BYTES
+    try:
+        for label, d, ps, slab_bytes in (("d=37 p=0.8", 37, (0.8,), 4 * 37 * 500),
+                                         ("d=64 p=1.5,0.5", 64, (1.5, 0.5), 4 * 64 * 700),
+                                         ("d=512 p=1.25,2 one slab", 512, (1.25, 2.0), 0)):
+            n = 3000
+            x = X[:n, :d].contiguous()
+            q = X[n:n + 300, :d].contiguous()
+            ids = torch.from_numpy(rng.integers(-2, n + 3, (300, 200)).astype(np.int32))
+            ids[:, 100:] = ids[:, :100]                      # every id twice
+            ids[7] = ids[7, 0]                               # one run over the whole row
+            ids[9] = -1                                      # all padding
+            ids = ids.to(X.device)
+            kd.SLAB_BYTES = slab_bytes
+            got = kd.gather_lp_multi(q, ids, x, ps)
+            for i, p in enumerate(ps):
+                single = kd.gather_lp(q, ids, x, p)
+                want = ref.gather_lp_ref(q, ids, x, p)
+                _sync()
+                check(bool(torch.equal(got[i], single)),
+                      f"gather_lp_multi {label}: bits differ from gather_lp at p={p}")
+                rel, abs_err, mis = rel_err(got[i], want)
+                check(mis == 0 and rel <= RTOL,
+                      f"gather_lp_multi {label} p={p}: rel {rel} mismatch {mis}")
+                out[f"{label} p={p}"] = {"max_rel_err": rel, "max_abs_err": abs_err}
+    finally:
+        kd.SLAB_BYTES = saved
+    return out
+
+
+def phase_kernels_bulk(index, Q, build_rec):
     """pairwise_lp at every upper-level call of the bulk build and at the
-    shared-ids form, gather_lp at the build's own scoring shape,
+    shared-ids form, gather_lp at the build's own scoring shape (its
+    multi-p form on the build's recorded round-2 block and on random ids),
     gather_lp_screen at the band search's shapes and at thresholds that
     kill, each against its plain version."""
     import torch
@@ -809,9 +914,22 @@ def phase_kernels_bulk(index, Q, build_shapes):
     dev = X.device
     out = {"pairwise_lp": [], "gather_lp_screen": []}
     worst = {"pairwise_lp": 0.0, "gather_lp_screen": 0.0}
-    out["gather_lp_build"] = gather_build_case(X, build_shapes)
-    worst["gather_lp_build"] = out["gather_lp_build"]["max_abs_err"]
+    node_rows, real_ids = build_rec["round2"]
+    out["gather_lp_build"] = gather_build_block(X[node_rows].contiguous(), real_ids, X, "real")
     emit({"phase": "kernels_bulk", "kernel": "gather_lp", **out["gather_lp_build"]})
+    rand_ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, n, real_ids.shape).astype(np.int32)).to(dev)
+    out["gather_lp_build_random"] = gather_build_block(X[node_rows].contiguous(), rand_ids, X,
+                                                       "random")
+    emit({"phase": "kernels_bulk", "kernel": "gather_lp", **out["gather_lp_build_random"]})
+    del rand_ids
+    out["gather_lp_multi_cases"] = gather_multi_cases(X)
+    emit({"phase": "kernels_bulk", "kernel": "gather_lp",
+          "multi_cases": out["gather_lp_multi_cases"]})
+    worst["gather_lp_build"] = max(out["gather_lp_build"]["max_abs_err"],
+                                   out["gather_lp_build_random"]["max_abs_err"],
+                                   *(r["max_abs_err"] for r in
+                                     out["gather_lp_multi_cases"].values()))
 
     # every upper level's pass of the bulk build (levels are shared by G1
     # and G2), at both base metrics, as one launch each; timed at level 1
@@ -1051,8 +1169,37 @@ def phase_kernels_rest(index, Q):
         want_d, want_i = ref.lp_topk_ref(Q, c257, p, K)
         topk_errors(got_d, got_i, want_d, want_i, ref.rowwise_lp_ref(Q, c257, p), K,
                     f"C=257 p={p}")
+    # NaN and +inf rows among the candidates: +inf after every number, NaN
+    # last, each in the plain version's place
+    cn = c[:, :64].clone()
+    cn[0, 7] = float("nan")
+    cn[1, 3] = float("inf")
+    cn[2, ::9] = float("nan")
+    for p in P_SCALAR:
+        for k in (K, 64):
+            got_d, got_i = lp_topk(Q, cn, p, k)
+            want_d, want_i = ref.lp_topk_ref(Q, cn, p, k)
+            topk_errors(got_d, got_i, want_d, want_i, ref.rowwise_lp_ref(Q, cn, p), k,
+                        f"NaN/inf p={p} k={k}")
+            odd = want_d.isnan() | want_d.isinf()
+            check(bool((got_d.isnan() == want_d.isnan()).all())
+                  and bool((got_d.isinf() == want_d.isinf()).all())
+                  and bool((got_i[odd] == want_i[odd]).all()),
+                  f"lp_topk NaN/inf p={p} k={k}: a NaN or +inf out of place")
+    # rows that are not 16-byte aligned (d = 37: 4-byte copies into the rings)
+    q37, c37 = Q[:, :37].contiguous(), c[:, :64, :37].contiguous()
+    # and rows wider than the rings take (d = 1,100: read from device memory)
+    qw = torch.cat([Q, Q, Q[:, :76]], 1).contiguous()
+    cw = torch.cat([c[:, :64], c[:, :64], c[:, :64, :76]], 2).contiguous()
+    for p in (0.8, 2.0):
+        for label, qq, cc in (("d=37", q37, c37), ("d=1100", qw, cw)):
+            got_d, got_i = lp_topk(qq, cc, p, K)
+            want_d, want_i = ref.lp_topk_ref(qq, cc, p, K)
+            topk_errors(got_d, got_i, want_d, want_i, ref.rowwise_lp_ref(qq, cc, p), K,
+                        f"{label} p={p}")
     emit({"phase": "kernels_rest", "seconds": _now() - t0, "launches": launched,
-          "tie_cases": "passed", "c257_cases": "passed"})
+          "tie_cases": "passed", "c257_cases": "passed", "nan_inf_cases": "passed",
+          "d37_d1100_cases": "passed"})
     del c, twin
     return out, worst, launched
 
@@ -1306,6 +1453,16 @@ def kernels_line(kernel_rows, bulk_rows, rest_rows, launches, worst) -> list:
                         "max_abs_err": worst[name], "ms": r["ms"], "device_ms": r["device_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+        if name == "gather_lp":     # the build's shared pass: one multi-p launch, both metrics
+            check(launches["gather_lp_multi"] > 0, "gather_lp_multi launched no time in the build")
+            bld = bulk_rows["gather_lp_build"]
+            kernels[-1].update({"build_source": "src/repro_torch/kernels/csrc/gather_lp_multi.cu",
+                                "build_launches": launches["gather_lp_multi"],
+                                "build_ms": bld["ms"], "build_device_ms": bld["device_ms"],
+                                "build_bound_ms": bld["bound_ms"],
+                                "build_plain_ms_on_plain_rows": bld["plain_ms_on_plain_rows"],
+                                "build_two_launches_device_ms":
+                                    bld["gather_lp_two_launches_device_ms"]})
         if name == "pairwise_lp":   # the level-1 call at p = 2 beside p = 1's
             p2 = bulk_rows["pairwise_lp"][1]
             check(p2["case"] == "level 1 p=2.0", f"pairwise_lp p = 2 row: {p2['case']}")
@@ -1332,10 +1489,11 @@ def main() -> int:
     X, Q = phase_data(dev)
     truth = phase_truth(X, Q)
     host_index, host = phase_index(X, Q, truth)
-    bulk_index, build_counts, build_shapes = phase_index_bulk(X, Q, truth, host)
+    bulk_index, build_counts, build_rec = phase_index_bulk(X, Q, truth, host)
     del X
     kernel_rows, worst = phase_kernels(host_index, Q)
-    bulk_rows, worst_bulk = phase_kernels_bulk(bulk_index, Q, build_shapes)
+    bulk_rows, worst_bulk = phase_kernels_bulk(bulk_index, Q, build_rec)
+    del build_rec
     results, counts = phase_search(host_index, Q, truth, "search")
     phase_mixed(results, "mixed")
     bulk_results, _ = phase_search(bulk_index, Q, truth, "search_bulk")
@@ -1352,6 +1510,7 @@ def main() -> int:
                            {"gather_lp": counts["gather_lp"],
                             "gather_lp_abandon": counts["gather_lp_abandon"],
                             "pairwise_lp": build_counts["pairwise_lp"],
+                            "gather_lp_multi": build_counts["gather_lp_multi"],
                             "gather_lp_screen": band_counts["gather_lp_screen"],
                             "rowwise_lp": rest_counts["rowwise_lp"],
                             "lp_topk": rest_counts["lp_topk"]},

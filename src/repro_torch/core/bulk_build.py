@@ -10,8 +10,9 @@ candidate-generation pass whose id blocks are scored under both metrics:
      candidate block.
   2. **NN-Descent rounds** (large corpora only) — each round samples
      forward and reverse neighbours-of-neighbours from the union of the L1
-     and L2 pools, scores the block under both metrics and sort-merges it
-     into each pool (exact distances, keep-best-k).
+     and L2 pools, scores the block under both metrics in one pass (the
+     multi-p gather kernel reads each distinct row once for both) and
+     sort-merges it into each pool (exact distances, keep-best-k).
   3. **Emit** — geometric levels, then per level: the vectorized HNSW
      heuristic prune, reverse-edge symmetrization, a second backfilled
      prune, a kNN top-up to full degree and the connectivity repair,
@@ -40,7 +41,8 @@ import torch
 
 from repro_torch.core.build import _SCRATCH, _repair_connectivity
 from repro_torch.core.hnsw import GraphArrays
-from repro_torch.kernels.ops import lp_gather_distance, lp_pairwise_distance
+from repro_torch.kernels.ops import (lp_gather_distance, lp_gather_distance_multi,
+                                    lp_pairwise_distance)
 
 # Below this corpus size the seed pass scores every column (exact kNN); above
 # it, random seeding + NN-Descent keeps the build subquadratic.
@@ -180,6 +182,23 @@ def _score_ids(x: torch.Tensor, node_rows: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+def _score_ids_multi(x: torch.Tensor, node_rows: torch.Tensor, ids: torch.Tensor,
+                     ps: tuple[float, ...]) -> torch.Tensor:
+    """`_score_ids` under every p of ps from one read of each row: (P, rows,
+    C) through the multi-p gather kernel (`kernels.ops.
+    lp_gather_distance_multi`), two p a launch; each plane has `_score_ids`'
+    bits."""
+    n_rows, c = ids.shape
+    out = torch.empty((len(ps), n_rows, c), dtype=torch.float32, device=x.device)
+    chunk = _rows_per_call(x, c)
+    for s in range(0, n_rows, chunk):
+        e = min(s + chunk, n_rows)
+        q = x[node_rows[s:e]]
+        for i in range(0, len(ps), 2):
+            out[i:i + 2, s:e] = lp_gather_distance_multi(q, ids[s:e], x, ps[i:i + 2])
+    return out
+
+
 def _sorted_pairwise(q: torch.Tensor, x: torch.Tensor, p: float, s: int, width: int):
     """Rows s.. of x scored against all of x through the pairwise kernel,
     self excluded, each row's best `width` columns ascending (lower id
@@ -280,11 +299,12 @@ def nn_descent_pools(
         return (pools, [_snapshot(pools)]) if trajectory else pools
 
     def score_and_merge(pools, cand):
-        """The shared pass: one id block, one distance evaluation per metric."""
+        """The shared pass: one id block, scored under every metric from one
+        read of each distinct row, then merged into each metric's pool."""
         cand = torch.where(cand == own, -1, cand)   # no self-loops
-        for p in metric_ps:
-            dd = _score_ids(x, own[:, 0], cand, p)
-            pools[p] = _merge_topk(*pools[p], cand, dd, k)
+        dd = _score_ids_multi(x, own[:, 0], cand, tuple(metric_ps))
+        for i, p in enumerate(metric_ps):
+            pools[p] = _merge_topk(*pools[p], cand, dd[i], k)
         return pools
 
     # 1. seed: a random candidate block per node (uniform, self excluded)

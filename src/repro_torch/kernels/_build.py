@@ -29,12 +29,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of each source's launcher: (argtypes, restype is int = cudaError_t)
 LAUNCHERS = {
-    "gather_lp": ("gather_lp_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # the arguments packed in one int64 array, and the scalar p
+    "gather_lp": ("gather_lp_launch", [_P, _F]),
+    # the arguments packed in one int64 array, and the two metrics' p
+    "gather_lp_multi": ("gather_lp_multi_launch", [_P, _F, _F]),
     "gather_lp_abandon": ("gather_lp_abandon_launch", [_P, _F]),
     "pairwise_lp": ("pairwise_lp_launch", [_P, _P, _P, _F, _P, _I, _I, _I, _P]),
     "rowwise_lp": ("rowwise_lp_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "lp_topk": ("lp_topk_launch", [_P] * 5 + [_I, _I, _I, _I, _P]),
+    "lp_topk": ("lp_topk_launch", [_P, _F]),
     "gather_lp_screen": ("gather_lp_screen_launch",
                          [_P] * 10 + [_I, _I, _I, _I, _I, _I, _P]),
 }

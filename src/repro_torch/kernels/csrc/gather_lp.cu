@@ -17,7 +17,10 @@
 // once per row, outside the inner loop. There is no product and no TF32: p = 2 is a plain
 // sum of squares. Making it fast (several candidates per warp, rows kept in flight with
 // cp.async) is later work; at the query path's shapes (B = 256, C = 10) the launch
-// itself is a large share of the time.
+// itself is a large share of the time, so the launch is kept light: the arguments come
+// packed in one array, and a scalar p goes in as an argument instead of a (B,) tensor.
+// The build's scoring pass, which scores one id block under two metrics, has its own
+// kernel (gather_lp_multi.cu) with this kernel's per-row arithmetic.
 #include <stdint.h>
 
 #include "lp_common.cuh"
@@ -26,7 +29,7 @@ namespace {
 
 __global__ void __launch_bounds__(lp::kWarps * 32)
 gather_lp_kernel(const int* __restrict__ ids, const float* __restrict__ q,
-                 const float* __restrict__ x, const float* __restrict__ p,
+                 const float* __restrict__ x, const float* __restrict__ p, float p_scalar,
                  float* __restrict__ out, int C, int n, int d, bool vec4) {
   extern __shared__ float4 q_smem4[];
   float* qs = reinterpret_cast<float*>(q_smem4);
@@ -44,17 +47,29 @@ gather_lp_kernel(const int* __restrict__ ids, const float* __restrict__ q,
   float result = INFINITY;
   if (id >= 0 && id < n) {
     const float* xr = x + static_cast<size_t>(id) * d;
-    result = lp::row_power_sum_any(xr, qs, d, p[b], lane, vec4);
+    result = lp::row_power_sum_any(xr, qs, d, p ? p[b] : p_scalar, lane, vec4);
   }
   if (lane == 0) out[slot] = result;
 }
 
 }  // namespace
 
-// ids (B, C) int32, q (B, d) f32, x (n, d) f32, p (B,) f32 -> out (B, C) f32, all
-// contiguous on the device. Launches on `stream`; returns cudaGetLastError().
-extern "C" int gather_lp_launch(const void* ids, const void* q, const void* x, const void* p,
-                                void* out, int B, int C, int n, int d, void* stream) {
+// The arguments come packed in one int64 array (one ctypes argument instead of ten):
+//   a[0] ids (B, C) int32; a[1] q (B, d) f32; a[2] x (n, d) f32; a[3] p (B,) f32, or 0
+//   for the scalar p_scalar; a[4] out (B, C) f32, all contiguous on the device;
+//   a[5..8] B, C, n, d; a[9] the stream.
+// Launches on the stream; returns cudaGetLastError().
+extern "C" int gather_lp_launch(const long long* a, float p_scalar) {
+  const auto* ids = reinterpret_cast<const int*>(a[0]);
+  const auto* q = reinterpret_cast<const float*>(a[1]);
+  const auto* x = reinterpret_cast<const float*>(a[2]);
+  const auto* p = reinterpret_cast<const float*>(a[3]);
+  auto* out = reinterpret_cast<float*>(a[4]);
+  const int B = static_cast<int>(a[5]);
+  const int C = static_cast<int>(a[6]);
+  const int n = static_cast<int>(a[7]);
+  const int d = static_cast<int>(a[8]);
+  const auto stream = reinterpret_cast<cudaStream_t>(a[9]);
   if (B == 0 || C == 0) return 0;
   const size_t smem = static_cast<size_t>(d) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -64,8 +79,7 @@ extern "C" int gather_lp_launch(const void* ids, const void* q, const void* x, c
   }
   const bool vec4 = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
   const dim3 grid(B, (C + lp::kWarps - 1) / lp::kWarps);
-  gather_lp_kernel<<<grid, lp::kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ids), static_cast<const float*>(q), static_cast<const float*>(x),
-      static_cast<const float*>(p), static_cast<float*>(out), C, n, d, vec4);
+  gather_lp_kernel<<<grid, lp::kWarps * 32, smem, stream>>>(ids, q, x, p, p_scalar, out, C, n,
+                                                            d, vec4);
   return static_cast<int>(cudaGetLastError());
 }

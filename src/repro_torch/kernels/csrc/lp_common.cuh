@@ -23,14 +23,15 @@ __device__ __forceinline__ int family_of(float p) {
   return kGeneral;
 }
 
-// a^p for a >= 0, cheapest sequence for the family (lp_ops.pow_from_abs).
+// a^p for a >= 0, cheapest sequence for the family (lp_ops.pow_from_abs). The guard
+// for log(0) is a select, not fmaxf, so that a NaN stays NaN as under clamp_min.
 template <int F>
 __device__ __forceinline__ float pow_from_abs(float a, float p) {
   if (F == kL1) return a;
   if (F == kL2) return a * a;
   if (F == kSqrt) return sqrtf(a);
   if (F == kL15) return a * sqrtf(a);
-  return a == 0.0f ? 0.0f : expf(p * logf(fmaxf(a, kEps)));
+  return a == 0.0f ? 0.0f : expf(p * logf(a < kEps ? kEps : a));
 }
 
 // x^e for x >= 0 via exp(e * log x), x <= 0 -> 0 (lp_ops._safe_pow).

@@ -5,12 +5,14 @@
 `pairwise_lp_kernel_call`, `rowwise_lp_kernel_call`,
 `gather_lp_kernel_call`, `gather_lp_abandon_kernel_call` and
 `gather_lp_screen_kernel_call` of `repro.kernels.lp_distance` (the sixth,
-`lp_topk`, has its own module, `kernels.lp_topk`). For CUDA tensors each
+`lp_topk`, has its own module, `kernels.lp_topk`); `gather_lp_multi` is
+`gather_lp_kernel_call`'s function under two static p at once, for the
+bulk build's shared scoring pass. For CUDA tensors each
 launches its kernel (built at first use by `kernels._build`) on the
 current stream, or raises; for CPU tensors each runs its plain version
 from `kernels.ref`. Each keeps a count of its kernel launches in its
 `launches` attribute, so that a run can show that a path went through the
-kernel; `launch_counts` reads all six.
+kernel; `launch_counts` reads all seven.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from repro_torch.kernels.ref import (
     rowwise_lp_ref,
 )
 
-_WRAPPERS = ("pairwise_lp", "rowwise_lp", "gather_lp", "gather_lp_abandon", "gather_lp_screen")
+_WRAPPERS = ("pairwise_lp", "rowwise_lp", "gather_lp", "gather_lp_multi", "gather_lp_abandon",
+             "gather_lp_screen")
 
 
 def _wrappers() -> dict:
@@ -75,6 +78,18 @@ def _p_rows(p, b: int, device) -> torch.Tensor:
     return p.expand(b).contiguous() if p.numel() == 1 else p.contiguous()
 
 
+def _p_launch(p, b: int, q: torch.Tensor):
+    """p as the launchers take it: (the (B,) tensor to keep alive or None,
+    its address or 0, the scalar p or 0.0). A scalar goes in as the scalar;
+    a float32 (B,) contiguous tensor on q's device goes in as it is."""
+    if is_static_p(p):
+        return None, 0, float(p)
+    pv = p if (torch.is_tensor(p) and p.dtype == torch.float32
+               and p.get_device() == q.get_device() and p.shape == (b,)
+               and p.is_contiguous()) else _p_rows(p, b, q.device)
+    return pv, pv.data_ptr(), 0.0
+
+
 _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
@@ -90,12 +105,13 @@ _PACKED = threading.local()
 
 
 def _packed(*args) -> int:
-    """The address of this thread's int64 argument array, filled with args
-    (ints): one ctypes argument in place of many."""
+    """The address of this thread's int64 argument array, its first
+    len(args) entries filled with args (ints, at most 17): one ctypes
+    argument in place of many."""
     buf = getattr(_PACKED, "buf", None)
     if buf is None:
         buf = _PACKED.buf = (ctypes.c_int64 * 17)()
-    buf[:] = args
+    buf[:len(args)] = args
     return ctypes.addressof(buf)
 
 
@@ -164,26 +180,106 @@ def gather_lp(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor, p) -> torch.T
     """Root-free sum_j |q[b, j] - x[ids[b, c], j]|^p -> (B, C) float32.
 
     q (B, d) f32, ids (B, C) int, x (n, d) f32, p a float or (B,) tensor.
-    Ids outside [0, n) are padding and score +inf.
+    Ids outside [0, n) are padding and score +inf. A scalar p goes in as a
+    kernel argument; int32 ids go in without a copy.
     """
     if _on_cpu(q):
         return gather_lp_ref(q, ids, x, p)
     b, d = q.shape
     c = ids.shape[1]
     n = x.shape[0]
-    ids = ids.to(torch.int32).contiguous()
-    q = q.contiguous()
-    x = x.contiguous()
-    _check("q", q, torch.float32, (b, d), x.device)
-    _check("x", x, torch.float32, (n, d), q.device)
-    _check("ids", ids, torch.int32, (b, c), q.device)
-    pv = _p_rows(p, b, q.device)
-    out = torch.empty((b, c), dtype=torch.float32, device=q.device)
-    err = _build.launcher("gather_lp")(
-        ids.data_ptr(), q.data_ptr(), x.data_ptr(), pv.data_ptr(), out.data_ptr(),
-        b, c, n, d, _stream())
+    if ids.dtype != torch.int32:
+        ids = ids.to(torch.int32)
+    if not ids.is_contiguous():
+        ids = ids.contiguous()
+    if not q.is_contiguous():
+        q = q.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
+    di = q.get_device()
+    pv, p_ptr, p_scalar = _p_launch(p, b, q)
+    if not (x.dtype == q.dtype == torch.float32 and x.get_device() == ids.get_device() == di
+            and x.shape[1] == d and ids.shape[0] == b):
+        _check("q", q, torch.float32, (b, d), x.device)
+        _check("x", x, torch.float32, (n, d), q.device)
+        _check("ids", ids, torch.int32, (b, c), q.device)
+    out = q.new_empty(b, c)
+    err = _build.launcher("gather_lp")(_packed(
+        ids.data_ptr(), q.data_ptr(), x.data_ptr(), p_ptr, out.data_ptr(), b, c, n, d,
+        _stream(q)), p_scalar)
     gather_lp.launches += 1
     _raise_on(err, "gather_lp")
+    return out
+
+
+# Corpus rows per slab of gather_lp_multi's grid: the rows that the blocks in
+# flight at one moment read, sized to stay in the H100's 50 MB L2 (0: one slab).
+SLAB_BYTES = 16 << 20
+
+
+def gather_plan(ids: torch.Tensor, n: int, slab_rows: int):
+    """The order gather_lp_multi's kernel walks a block of ids in ->
+    (sids (B, C) int32: each row's ids sorted ascending; perm (B, C)
+    int64: the slot each sorted position came from; off (B, S + 1) int32
+    or None: each row's span of sorted positions in each slab of
+    `slab_rows` corpus rows, the first span from 0 and the last to C, so
+    the padding ids go with them; None for one slab).
+
+    Plain torch: on the card it runs before the kernel, on the CPU the
+    tests hold its bookkeeping against the plain version.
+    """
+    if ids.dtype != torch.int32:
+        ids = ids.to(torch.int32)
+    sids, perm = torch.sort(ids, dim=1, stable=True)
+    b, c = ids.shape
+    if slab_rows <= 0 or slab_rows >= n:
+        return sids, perm, None
+    slabs = -(-n // slab_rows)
+    edges = torch.arange(slabs + 1, dtype=torch.int32, device=ids.device) * slab_rows
+    off = torch.searchsorted(sids, edges.expand(b, slabs + 1).contiguous(), out_int32=True)
+    off[:, 0] = 0
+    off[:, slabs] = c
+    return sids, perm, off
+
+
+def gather_lp_multi(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor,
+                    ps: tuple[float, ...]) -> torch.Tensor:
+    """Root-free sums of one id block under several static p -> (P, B, C)
+    float32: out[i] equals gather_lp(q, ids, x, ps[i]) bit for bit.
+
+    q (B, d) f32, ids (B, C) int, x (n, d) f32, ps one or two floats. Ids
+    outside [0, n) are padding and score +inf. The kernel reads each
+    distinct row of a query's block once for every p (see
+    csrc/gather_lp_multi.cu); the sort that finds the duplicates stays
+    inside this call, which returns the caller's slot order.
+    """
+    ps = tuple(float(p) for p in ps)
+    if not 1 <= len(ps) <= 2:
+        raise ValueError(f"gather_lp_multi takes one or two p, got {len(ps)}")
+    if _on_cpu(q):
+        return torch.stack([gather_lp_ref(q, ids, x, p) for p in ps])
+    b, d = q.shape
+    c = ids.shape[1]
+    n = x.shape[0]
+    if not q.is_contiguous():
+        q = q.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not (x.dtype == q.dtype == torch.float32 and x.get_device() == ids.get_device()
+            == q.get_device() and x.shape[1] == d and ids.shape[0] == b):
+        _check("q", q, torch.float32, (b, d), x.device)
+        _check("x", x, torch.float32, (n, d), q.device)
+        _check("ids", ids, ids.dtype, (b, c), q.device)
+    slab_rows = SLAB_BYTES // (4 * max(d, 1)) if SLAB_BYTES > 0 else 0
+    sids, perm, off = gather_plan(ids, n, slab_rows)
+    slabs = 1 if off is None else off.shape[1] - 1
+    out = q.new_empty(len(ps), b, c)
+    err = _build.launcher("gather_lp_multi")(_packed(
+        sids.data_ptr(), perm.data_ptr(), 0 if off is None else off.data_ptr(), q.data_ptr(),
+        x.data_ptr(), out.data_ptr(), b, c, n, d, slabs, len(ps), _stream(q)),
+        ps[0], ps[-1])
+    gather_lp_multi.launches += 1
+    _raise_on(err, "gather_lp_multi")
     return out
 
 
@@ -228,12 +324,7 @@ def gather_lp_abandon(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor,
     if not thresh.is_contiguous():
         thresh = thresh.contiguous()
     di = q.get_device()
-    if is_static_p(p):
-        pv, p_ptr, p_scalar = None, 0, float(p)
-    else:
-        pv = p if (torch.is_tensor(p) and p.dtype == torch.float32 and p.get_device() == di
-                   and p.shape == (b,) and p.is_contiguous()) else _p_rows(p, b, q.device)
-        p_ptr, p_scalar = pv.data_ptr(), 0.0
+    pv, p_ptr, p_scalar = _p_launch(p, b, q)
     if not (x.dtype == q.dtype == sb.dtype == thresh.dtype == torch.float32
             and x.get_device() == ids.get_device() == sb.get_device() == thresh.get_device() == di
             and x.shape[1] == d and ids.shape[0] == b and sb.shape == (b, c)

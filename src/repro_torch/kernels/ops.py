@@ -51,6 +51,15 @@ def lp_gather_distance(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor, p,
     return _root(d, p) if root else d
 
 
+def lp_gather_distance_multi(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor,
+                             ps: tuple[float, ...]) -> torch.Tensor:
+    """Root-free power sums of per-query candidate id blocks under one or two
+    static p, from one read of each row -> (P, B, C) f32; plane i has
+    `lp_gather_distance`'s bits at ps[i]. ids (B, C) outside [0, n) are
+    padding and score +inf. The bulk builder's shared scoring pass."""
+    return _k.gather_lp_multi(q, ids, x, ps)
+
+
 def lp_rowwise_distance(q: torch.Tensor, c: torch.Tensor, p, root: bool = True):
     """Rowwise Lp distances q (B, d) x pre-gathered c (B, C, d) -> (B, C) f32,
     through the rowwise kernel (the counterpart of `pallas_rowwise_lp`).

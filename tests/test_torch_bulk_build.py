@@ -33,6 +33,7 @@ from repro_torch.core import build as tbuild
 from repro_torch.core import bulk_build as tbulk
 from repro_torch.core.hnsw import GraphArrays, knn_search
 from repro_torch.core.uhnsw import UHNSW, UHNSWParams, recall
+from repro_torch.kernels import lp_distance
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 VERIFY_DS = Path(__file__).resolve().parents[1] / "results/bench_cache/verify_ds_d96_n1500_q16.pkl"
@@ -180,6 +181,54 @@ def test_nn_descent_pools_match_reference(verify_corpus, n, threshold):
         same = float(np.mean(ids == want[p][0]))
         assert same >= 0.99, (p, same)
         np.testing.assert_allclose(d, want[p][1], rtol=RTOL, atol=ATOL)
+
+
+def _per_metric_scoring(x, node_rows, ids, ps):
+    """The shared pass as it was before the multi-p kernel: one
+    `_score_ids` call (the single-p gather) per metric, stacked."""
+    return torch.stack([tbulk._score_ids(x, node_rows, ids, p) for p in ps])
+
+
+@pytest.mark.parametrize("metric_ps", [(1.0, 2.0), (1.5,)])
+def test_nn_descent_fused_scoring_equals_per_metric_path(verify_corpus, monkeypatch, metric_ps):
+    """The NN-Descent path with the fused scoring (one multi-p gather per
+    round, both metrics) gives pools and trajectory bitwise equal to the
+    per-metric scoring; the seed and every round take one multi-p call."""
+    data = verify_corpus[0][:700]
+    calls = []
+    fused = lp_distance.gather_lp_multi
+
+    def spy(q, ids, x, ps):
+        calls.append(tuple(ps))
+        return fused(q, ids, x, ps)
+
+    monkeypatch.setattr(lp_distance, "gather_lp_multi", spy)
+    got, got_traj = tbulk.nn_descent_pools(data, metric_ps, k=32, seed=5, rounds=3,
+                                           exact_seed_threshold=256, trajectory=True,
+                                           device="cpu")
+    assert calls == [metric_ps] * 4
+    monkeypatch.setattr(tbulk, "_score_ids_multi", _per_metric_scoring)
+    want, want_traj = tbulk.nn_descent_pools(data, metric_ps, k=32, seed=5, rounds=3,
+                                             exact_seed_threshold=256, trajectory=True,
+                                             device="cpu")
+    for p in metric_ps:
+        np.testing.assert_array_equal(got[p][0].numpy(), want[p][0].numpy())
+        np.testing.assert_array_equal(got[p][1].numpy(), want[p][1].numpy())
+        for a, b in zip(got_traj, want_traj):
+            np.testing.assert_array_equal(a[p].numpy(), b[p].numpy())
+
+
+def test_score_ids_multi_takes_metrics_two_at_a_time(verify_corpus):
+    """Three metrics go through two multi-p calls; each plane has the
+    single-metric scoring's bits, padding (-1) included."""
+    x = torch.from_numpy(verify_corpus[0][:200])
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(-1, 200, size=(50, 40)))
+    rows = torch.arange(50)
+    ps = (1.0, 2.0, 0.5)
+    got = tbulk._score_ids_multi(x, rows, ids, ps)
+    np.testing.assert_array_equal(got.numpy(), _per_metric_scoring(x, rows, ids, ps).numpy())
+    assert bool(got[:, ids < 0].isinf().all())
 
 
 @pytest.fixture(scope="module")

@@ -195,7 +195,143 @@ def test_lp_topk_takes_any_k_up_to_c(k, p):
 
 def test_lp_topk_shared_memory_grows_with_k():
     """The kernel's running list is sized by k: at C = 300 every k fits in a
-    block's shared memory, and the wrapper's limit is the H100's opt-in."""
-    assert lp_topk_mod.smem_bytes(512, 300) <= 48 * 1024
+    block's shared memory beside the ring of candidate rows, two blocks to
+    an SM (228 KB, 1 KB of it reserved per block), and the wrapper's limit
+    is the H100's opt-in."""
+    assert 2 * (lp_topk_mod.smem_bytes(512, 300) + 1024) <= 228 * 1024
     assert lp_topk_mod.smem_bytes(512, 65) > lp_topk_mod.smem_bytes(512, 64)
     assert lp_topk_mod.smem_bytes(512, 20_000) > lp_topk_mod.SMEM_OPTIN_BYTES
+
+
+# ---------------------------------------------------------------------------
+# the kernel's plan (csrc/lp_topk.cu), as a plain model: one block a query,
+# its warp w takes the candidates w, w + W, ...; a warp filters each scored
+# row against its own running k-th entry into a pending buffer, merges the
+# buffer when it is full and after its last row; then every warp list of the
+# block is placed among all the others by binary searches (global positions
+# throughout)
+# ---------------------------------------------------------------------------
+
+
+def _plan_key(d: float, pos: int, c: int):
+    """The kernel's strict order: empty slots (position >= C) last, NaN after
+    every number, then distance, then position."""
+    empty, nan = pos >= c, bool(np.isnan(d))
+    return (empty, nan, 0.0 if nan else d, pos)
+
+
+def _count_before(lst, e, c):
+    """The kernel's binary search: entries of the sorted list before e."""
+    lo, hi = 0, len(lst)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if _plan_key(*lst[mid], c) < _plan_key(*e, c):
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _merge_pending(lst, pend, c):
+    """The kernel's merge: running entry i goes to i + the pending entries
+    before it; a pending entry to the running entries before it (binary
+    search) + the pending entries before it; places below k are kept."""
+    k = len(lst)
+    places = {}
+    for i, e in enumerate(lst):
+        places[i + sum(_plan_key(*f, c) < _plan_key(*e, c) for f in pend)] = e
+    for e in pend:
+        place = _count_before(lst, e, c) + sum(_plan_key(*f, c) < _plan_key(*e, c) for f in pend)
+        assert place not in places          # a strict order: the places are a permutation
+        places[place] = e
+    assert sorted(places) == list(range(k + len(pend)))
+    return [places[i] for i in range(k)]
+
+
+def _topk_plan_model(dist: np.ndarray, k: int, warps: int, pending: int):
+    """One query's top-k as the kernel computes it from its root-free
+    distances: (dists (k,), ids (k,)), and the number of merges."""
+    c = dist.shape[0]
+    lists, merges = [], 0
+    for w in range(warps):
+        lst = [(np.inf, c + w * k + i) for i in range(k)]
+        pend = []
+        mine = list(range(w, c, warps))
+        for t, pos in enumerate(mine):
+            e = (float(dist[pos]), pos)
+            if _plan_key(*e, c) < _plan_key(*lst[k - 1], c):
+                pend.append(e)
+            if len(pend) == pending or (pend and t == len(mine) - 1):
+                lst = _merge_pending(lst, pend, c)
+                pend, merges = [], merges + 1
+        lists.append(lst)
+    out = [None] * k
+    for li, lst in enumerate(lists):
+        for i, e in enumerate(lst):
+            place = i + sum(_count_before(other, e, c)
+                            for lj, other in enumerate(lists) if lj != li)
+            if place < k:
+                assert out[place] is None and e[1] < c
+                out[place] = e
+    assert all(e is not None for e in out)
+    return (np.array([e[0] for e in out], np.float32), np.array([e[1] for e in out], np.int32),
+            merges)
+
+
+def _plan_case(name: str):
+    """(q, c, p, k) with ties, NaN and +inf among the candidates where asked."""
+    rng = np.random.default_rng(len(name))
+    b, c, d = 3, 75, 16
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    cands = rng.standard_normal((b, c, d)).astype(np.float32)
+    k = 10
+    if name == "ties":
+        cands[:, 40:] = cands[:, 5:40]             # copies at later positions
+    elif name == "nan_inf":
+        cands[0, [3, 17, 50]] = np.nan             # NaN rows sort last
+        cands[1, [0, 60]] = np.inf                 # +inf distances, before NaN
+        cands[2, ::7] = np.nan
+        k = 74                                     # deep enough to reach them
+    elif name == "k_eq_c":
+        k = c
+    elif name == "ragged":
+        cands = cands[:, :37]                      # C not a multiple of the warps
+    return q, cands, 1.3 if name != "ties" else 1.0, k
+
+
+@pytest.mark.parametrize("warps", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", ["plain", "ties", "nan_inf", "k_eq_c", "ragged"])
+def test_lp_topk_plan_model_equals_plain_version(case, warps):
+    """The plan of the streaming kernel gives the plain version's ids and
+    distances bit for bit, for 1 to 4 warp lists merged at the end, with a
+    small pending buffer so that every rule runs (several merges, the
+    filter against a full list, lists that stay partly empty)."""
+    q, cands, p, k = _plan_case(case)
+    tq, tc = torch.from_numpy(q), torch.from_numpy(cands)
+    dist = rowwise_lp_ref(tq, tc, p).numpy()
+    want_d, want_i = lp_topk_ref(tq, tc, p, k, root=False)
+    merges = 0
+    for row in range(q.shape[0]):
+        got_d, got_i, m = _topk_plan_model(dist[row], k, warps, pending=3)
+        merges += m
+        np.testing.assert_array_equal(got_i, want_i[row].numpy())
+        np.testing.assert_array_equal(got_d, want_d[row].numpy())
+    assert merges >= q.shape[0] * warps
+
+
+def test_lp_topk_plan_at_the_kernels_sizes():
+    """The kernel's own sizes at d = 512: 8 warps a block, 32 pending a
+    warp, C = 300 over the block's warps, at k = 10 and k = C; and the
+    shared memory the wrapper checks against, rings included up to d =
+    1,024 only."""
+    rng = np.random.default_rng(7)
+    dist = rng.standard_normal(300).astype(np.float32) ** 2
+    dist[100:110] = dist[0]                        # ties across the warps' rows
+    for k in (10, 300):
+        order = np.argsort(dist, kind="stable")[:k]
+        got_d, got_i, _ = _topk_plan_model(dist, k, lp_topk_mod.WARPS, lp_topk_mod.PENDING)
+        np.testing.assert_array_equal(got_i, order)
+        np.testing.assert_array_equal(got_d, dist[order])
+    w, st = lp_topk_mod.WARPS, lp_topk_mod.STAGES
+    assert lp_topk_mod.smem_bytes(512, 10) == 4 * 512 * (1 + w * st) + 8 * w * (20 + 32)
+    assert lp_topk_mod.smem_bytes(2048, 10) == 4 * 2048 + 8 * w * (20 + 32)

@@ -294,9 +294,11 @@ def test_wrappers_run_plain_versions_on_cpu_without_counting():
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     np.testing.assert_array_equal(lp_distance.pairwise_lp(tq, tx, 1.25).numpy(),
                                   pairwise_lp_ref(tq, tx, 1.25).numpy())
+    np.testing.assert_array_equal(lp_distance.gather_lp_multi(tq, ti, tx, (1.0, 2.0))[1].numpy(),
+                                  gather_lp_ref(tq, ti, tx, 2.0).numpy())
     assert lp_distance.launch_counts() == {"pairwise_lp": 0, "rowwise_lp": 0, "gather_lp": 0,
-                                           "gather_lp_abandon": 0, "gather_lp_screen": 0,
-                                           "lp_topk": 0}
+                                           "gather_lp_multi": 0, "gather_lp_abandon": 0,
+                                           "gather_lp_screen": 0, "lp_topk": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -334,3 +336,117 @@ def test_packed_launch_arguments_round_trip():
     t.join()
     assert other[0] != addr
     assert list((ctypes.c_int64 * 17).from_address(addr)) == got
+
+
+# ---------------------------------------------------------------------------
+# the multi-p gather of the bulk build's shared pass (csrc/gather_lp_multi.cu)
+# ---------------------------------------------------------------------------
+
+
+def _multi_case(seed=4, b=7, c=70, n=120, d=24):
+    """ids with many repeats (a small corpus), -1 and n padding, and an
+    all-padding row."""
+    q, x, _, rng = _gather_case(seed=seed, b=b, c=c, n=n, d=d)
+    ids = rng.integers(0, n, size=(b, c)).astype(np.int32)
+    ids[:, ::9] = -1
+    ids[:, 4::11] = n
+    ids[2, :] = ids[2, 0]              # one id in every slot
+    ids[5, :] = np.where(np.arange(c) % 2 == 0, -1, n)
+    return q, x, ids
+
+
+@pytest.mark.parametrize("ps", [(1.0, 2.0), (2.0, 1.0), (0.5, 1.25), (1.5,), (0.8, 0.8)])
+def test_gather_lp_multi_equals_per_p_plain_versions(ps):
+    """Each plane equals gather_lp's plain version at its p, bit for bit,
+    and the reference's gather within the module's tolerance."""
+    q, x, ids = _multi_case()
+    tq, tx, ti = map(torch.from_numpy, (q, x, ids))
+    got = lp_distance.gather_lp_multi(tq, ti, tx, ps)
+    assert got.shape == (len(ps), *ids.shape) and got.dtype == torch.float32
+    for i, p in enumerate(ps):
+        np.testing.assert_array_equal(got[i].numpy(), gather_lp_ref(tq, ti, tx, p).numpy())
+        want = rops.lp_gather_distance(jnp.asarray(q), jnp.asarray(ids), jnp.asarray(x), p)
+        _close(got[i], want, f"p={p}")
+    assert np.isinf(got[:, 5].numpy()).all()
+
+
+def test_gather_lp_multi_refuses_more_than_two_p():
+    q, x, ids = _multi_case()
+    with pytest.raises(ValueError, match="one or two p"):
+        lp_distance.gather_lp_multi(*map(torch.from_numpy, (q, ids, x)), (1.0, 2.0, 0.5))
+
+
+def _kernel_walk(q, ids, x, ps, slab_rows):
+    """gather_lp_multi's kernel in plain torch, from the wrapper's plan: per
+    row and slab, its span of sorted positions 32 at a time; a position
+    heads a run when it starts the 32 or its id differs from the one
+    before; each head is scored once and its value written to every slot
+    of its run through perm. Returns (out (P, B, C), rows scored)."""
+    n = x.shape[0]
+    b, c = ids.shape
+    sids, perm, off = lp_distance.gather_plan(ids, n, slab_rows)
+    if off is None:
+        off = torch.tensor([[0, c]] * b, dtype=torch.int32)
+    slabs = off.shape[1] - 1
+    out = torch.full((len(ps), b, c), torch.nan)
+    scored = 0
+    for r in range(b):
+        for s in range(slabs):
+            lo, hi = int(off[r, s]), int(off[r, s + 1])
+            span = sids[r, lo:hi]
+            valid = (span >= 0) & (span < n)
+            if slabs > 1:       # each slab's span holds its own rows (padding at the ends)
+                assert bool(((span[valid] >= s * slab_rows)
+                             & (span[valid] < (s + 1) * slab_rows)).all())
+                assert bool((span[~valid] < 0).all()) if s == 0 else True
+                assert bool((span[~valid] >= n).all()) if s == slabs - 1 else True
+                assert bool(valid.all()) if 0 < s < slabs - 1 else True
+            for base in range(lo, hi, 32):
+                pos = torch.arange(base, min(base + 32, hi))
+                idv = sids[r, pos]
+                head = torch.ones(len(pos), dtype=torch.bool)
+                head[1:] = idv[1:] != idv[:-1]
+                run = torch.cumsum(head.long(), 0) - 1
+                hid = idv[head]
+                vals = torch.stack([gather_lp_ref(q[r:r + 1], hid[None], x, p)[0] for p in ps])
+                scored += int(((hid >= 0) & (hid < n)).sum())
+                out[:, r, perm[r, pos]] = vals[:, run]
+    return out, scored
+
+
+@pytest.mark.parametrize("slab_rows", [0, 7, 40, 119, 500])
+def test_gather_plan_returns_every_slot_in_the_callers_order(slab_rows):
+    """The wrapper's sort and the kernel's walk, in plain torch: every slot
+    gets its own id's value, in the caller's slot order, bit for bit; the
+    slabs' spans cover each row; no distinct row is scored twice but where
+    a run crosses a 32-position boundary."""
+    q, x, ids = _multi_case(c=150)
+    tq, tx, ti = map(torch.from_numpy, (q, x, ids))
+    ps = (1.0, 2.0)
+    got, scored = _kernel_walk(tq, ti, tx, ps, slab_rows)
+    assert not bool(got.isnan().any())
+    for i, p in enumerate(ps):
+        np.testing.assert_array_equal(got[i].numpy(), gather_lp_ref(tq, ti, tx, p).numpy())
+    n = x.shape[0]
+    distinct = sum(len({int(v) for v in row if 0 <= v < n}) for row in ids)
+    batches = sum(-(-int((row.size)) // 32) for row in ids) * (-(-n // slab_rows)
+                                                                  if 0 < slab_rows < n else 1)
+    assert distinct <= scored <= distinct + batches
+    sids, perm, off = lp_distance.gather_plan(ti, n, slab_rows)
+    assert sids.dtype == torch.int32 and perm.dtype == torch.int64
+    np.testing.assert_array_equal(np.take_along_axis(ids, perm.numpy(), 1), sids.numpy())
+    if off is not None:
+        assert off.dtype == torch.int32 and bool((off[:, 0] == 0).all())
+        assert bool((off[:, -1] == ids.shape[1]).all()) and bool((off.diff(1) >= 0).all())
+
+
+def test_gather_lp_takes_int32_ids_and_per_row_p_on_cpu():
+    """The query path's call: int32 or int64 ids, scalar or (B,) p, equal
+    to the plain version either way."""
+    q, x, ids, _ = _gather_case(seed=6)
+    tq, tx = torch.from_numpy(q), torch.from_numpy(x)
+    pv = torch.from_numpy(_p_rows(q.shape[0]))
+    for ti in (torch.from_numpy(ids), torch.from_numpy(ids).long()):
+        for p in (0.8, pv):
+            np.testing.assert_array_equal(lp_distance.gather_lp(tq, ti, tx, p).numpy(),
+                                          gather_lp_ref(tq, ti, tx, p).numpy())
