@@ -22,13 +22,16 @@ counts set to 0 just before it and read just after:
      compressed_band=True (gather_lp_screen, gather_lp), then with
      energy_perm=True, at every p and the mixed batch;
   4. the rowwise and fused top-k entry points (phase `kernels_rest`):
-     kernels.ops.lp_rowwise_distance and kernels.lp_topk.lp_topk on the
-     shared-pass index's 300 candidates a query (rowwise_lp, lp_topk),
-     with tie cases, NaN and +inf rows, and a block of 257 candidates;
+     kernels.ops.lp_rowwise_distance at every p family (0.5, 0.8, 1, 1.25,
+     1.5, 2 and mixed) and kernels.lp_topk.lp_topk on the shared-pass
+     index's 300 candidates a query (rowwise_lp, lp_topk), with tie cases,
+     NaN and +inf rows, and a block of 257 candidates;
   5. the sharded index (phase `sharded`): ShardedUHNSW.build(4 segments,
      m = 16, method="bulk"), searched under the independent, two_phase and
      round_robin policies at p in {0.5, 1.25, 2.0} and the mixed batch
-     (gather_lp, gather_lp_abandon);
+     (gather_lp, gather_lp_abandon), then under the independent policy
+     with compressed_band=True at p = 1.25 and the mixed batch
+     (gather_lp_screen), which must return the independent ids;
   6. the delta tier (phase `delta`): 512 fresh rows added to the sharded
      index, each searched for with abandon on and off (gather_lp_abandon,
      pairwise_lp on the delta scan), then compacted into a fifth segment.
@@ -39,8 +42,10 @@ paths' defaults do not reach (pairwise_lp at ragged shapes, with its level
 calls exactly symmetric; gather_lp_multi on the build's own round-2 block
 and on random ids, with gather_lp's bits, and at d = 37, general p and
 small slabs; gather_lp_abandon at block_d 8 and 16, C = 1 and 37, on
-strided id slices; lp_topk at k = 65 and k = C, with NaN and +inf rows,
-and at d = 37 and 1,100), times each kernel
+strided id slices; gather_lp_screen at block_d 8 and 16, C = 1 and 37,
+on strided id and base-sum slices, at d = 37, with frozen and +inf
+rows, padding ids and NaN query coordinates; lp_topk at k = 65 and k =
+C, with NaN and +inf rows, and at d = 37 and 1,100), times each kernel
 around its wrapper (`ms`) and on the device alone (`device_ms`, calls
 captured in a CUDA graph), measures recall
 against a brute-force top-k and checks it against the same search with the
@@ -201,10 +206,6 @@ def plain_versions():
         call.launches = 0          # a plain version launches no kernel
         return call
 
-    def screen_ref(*args):
-        keep, nd = ref.gather_lp_screen_ref(*args)
-        return keep.to(torch.int32), nd
-
     def multi_ref(q, ids, x, ps):
         return torch.stack([ref.gather_lp_ref(q, ids, x, p) for p in ps])
 
@@ -212,7 +213,7 @@ def plain_versions():
              "gather_lp": uncounted(ref.gather_lp_ref),
              "gather_lp_multi": uncounted(multi_ref),
              "gather_lp_abandon": uncounted(ref.gather_lp_abandon_ref),
-             "gather_lp_screen": uncounted(screen_ref)}
+             "gather_lp_screen": uncounted(ref.gather_lp_screen_ref)}
     saved = {name: getattr(lp_distance, name) for name in plain}
     for name, fn in plain.items():
         setattr(lp_distance, name, fn)
@@ -737,7 +738,27 @@ def screen_case(Qp, batch, band, thresh, sb, p, base, bd, label):
                 "entry_kills": int((killed & (nd == 0)).sum()),
                 "mid_scan_kills": int((killed & (nd > 0) & (nd < d)).sum()),
                 "nd_values": int(nd.unique().numel()),
+                # band bytes of the blocks scanned (the bound's), and the bytes the
+                # kernel reads: the whole row of every candidate alive at entry
+                "band_bytes_scanned": int(nd.sum()), "band_bytes_read": d * int((nd > 0).sum()),
                 "keep_mismatch": keep_diff, "nd_mismatch": nd_diff}
+
+
+def tight_thresh(Qp, batch, band, p):
+    """Thresholds that kill: each row's median of the plain certified lower
+    bound over its batch, times 1/4, 1/2, 3/4 or 1 by row (see
+    screen_tight)."""
+    import torch
+
+    from repro_torch.index.compressed import compressed_lower_bound
+
+    b, c = batch.shape
+    n = band.codes.shape[0]
+    rows = torch.arange(b, device=batch.device)
+    lb = compressed_lower_bound(Qp, band.codes[batch.long().clamp(0, n - 1).reshape(-1)],
+                                band.scale, band.radius, p)
+    factor = 0.25 * (1 + rows % 4)
+    return (lb.reshape(b, b, c)[rows, rows].median(dim=1).values * factor).contiguous()
 
 
 def screen_tight(Qp, batch, band, sb, p, base, bd, label) -> dict:
@@ -753,15 +774,7 @@ def screen_tight(Qp, batch, band, sb, p, base, bd, label) -> dict:
     kills that the base bound brings forward are the suffix test's."""
     import torch
 
-    from repro_torch.index.compressed import compressed_lower_bound
-
-    b, c = batch.shape
-    n, d = band.codes.shape
-    rows = torch.arange(b, device=batch.device)
-    lb = compressed_lower_bound(Qp, band.codes[batch.long().clamp(0, n - 1).reshape(-1)],
-                                band.scale, band.radius, p)
-    factor = 0.25 * (1 + rows % 4)
-    thresh = (lb.reshape(b, b, c)[rows, rows].median(dim=1).values * factor).contiguous()
+    thresh = tight_thresh(Qp, batch, band, p)
     out, nds = {}, {}
     for name, sbc in (("base_bound", sb), ("no_bound", torch.zeros_like(sb))):
         nds[name], st = screen_case(Qp, batch, band, thresh, sbc, p, base, bd,
@@ -895,18 +908,183 @@ def gather_multi_cases(X) -> dict:
     return out
 
 
+def screen_setup(index, Q, p_mix):
+    """What the band search hands the screen: the band, the queries in its
+    coordinate order, the block width, and for each case (label, p, base
+    metric, that metric's candidate set, threshold) at every p and the
+    mixed batch, the threshold being the k-th best exact distance of the
+    first k candidates, as the verification loop makes it."""
+    from repro_torch.core.metrics import base_metric_for
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import pick_abandon_block_d
+
+    band = index.compressed_band()
+    Qp = Q[:, band.perm].contiguous()
+    bd = pick_abandon_block_d(index.X.shape[1])
+    cands = {b: index.search_stage_candidates(Q, b, K) for b in (1.0, 2.0)}
+    cases = []
+    for label, p, base in ([(str(p), p, base_metric_for(p)) for p in P_SCALAR]
+                           + [("mixed", p_mix, 1.0)]):
+        c = cands[base]
+        first = c.ids[:, :K].contiguous()
+        thresh = kth_smallest(ref.gather_lp_ref(Q, first, index.X, p))
+        cases.append((label, p, base, c, thresh))
+    return band, Qp, bd, cases
+
+
+def kth_smallest(d):
+    """Each row's K-th smallest value, contiguous."""
+    import torch
+
+    return torch.sort(d, dim=1).values[:, K - 1].contiguous()
+
+
+def screen_path_rows(index, Q, p_mix):
+    """gather_lp_screen on the band search's kappa batches at every p and
+    the mixed batch: keep and nd against the plain version, a batch that
+    mostly survives (with frozen and unbounded rows), the tight cases,
+    and the times beside the bound. Returns (rows, screen_setup's
+    output)."""
+    import torch
+
+    from repro_torch.kernels import lp_distance as kd
+    from repro_torch.kernels import ref
+
+    band, Qp, bd, cases = screen_setup(index, Q, p_mix)
+    d = index.X.shape[1]
+    kappa = K // 2
+    rows = []
+    for label, p, base, c, thresh in cases:
+        batch = c.ids[:, K:K + kappa].contiguous()
+        sb = c.base_dists[:, K:K + kappa].contiguous()
+        nd, stats = screen_case(Qp, batch, band, thresh, sb, p, base, bd, label)
+        # also a batch that mostly survives: the last kappa of the first k,
+        # with every 8th row frozen (-inf) and every 8th unbounded (+inf)
+        r8 = torch.arange(Q.shape[0], device=Q.device) % 8
+        thr2 = torch.where(r8 == 1, -torch.inf, torch.where(r8 == 2, torch.inf, thresh))
+        _, s_stats = screen_case(Qp, c.ids[:, K - kappa:K].contiguous(), band,
+                                 thr2.contiguous(), c.base_dists[:, K - kappa:K].contiguous(),
+                                 p, base, bd, label + " survivors")
+        check(s_stats["survivors"] > 0, f"no screen survivors to compare at p={label}")
+        t_stats = screen_tight(Qp, batch, band, sb, p, base, bd, label)
+        ope = ops_per_element(p)
+        ope_rows = np.broadcast_to(ope, (Q.shape[0],)) if ope.size > 1 else ope[0]
+        scanned = nd.sum(1).cpu().numpy()
+        live_rows = int((nd.sum(1) > 0).sum())
+        nbytes = scanned.sum() + 4 * live_rows * d + 8 * d + 4 * (4 * batch.numel()
+                                                                  + 2 * Q.shape[0])
+        bnd = bound(nbytes, float(np.sum(scanned * (ope_rows + OPS_SCREEN_EXTRA))))
+        row = {"p": label, "base_p": base, "shape": list(batch.shape), "block_d": bd, **stats,
+               "survivor_case": s_stats, "tight_cases": t_stats,
+               "band_frac": float(scanned.sum() / (batch.numel() * d)), "max_abs_err": 0.0,
+               **kernel_ms(lambda: kd.gather_lp_screen(Qp, batch, band.codes, band.scale,
+                                                       band.radius, thresh, sb, p, base, bd)),
+               "plain_ms": median_ms(lambda: ref.gather_lp_screen_ref(
+                   Qp, batch, band.codes, band.scale, band.radius, thresh, sb, p, base, bd)),
+               "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+        rows.append(row)
+    suffix = sum(r["tight_cases"]["base_bound"]["suffix_kills"] for r in rows)
+    check(suffix > 0, "gather_lp_screen: the suffix test killed no candidate in any tight case")
+    return rows, (band, Qp, bd, cases)
+
+
+def screen_shapes(index, Q, band, Qp, bd, cases) -> dict:
+    """gather_lp_screen at shapes the band path's defaults do not reach,
+    keep and nd equal to the plain version's in each (screen_case): block_d
+    8 and 16 (64 blocks, two chunks of the kernel's kill tests, and 32),
+    C = 1 and 37, the kappa batch as strided column slices of the
+    candidate ids and base sums (no copy), d = 37 (one block; band rows
+    neither 16- nor 4-byte aligned), frozen (-inf) and +inf thresholds with
+    padding ids, and query rows with a NaN coordinate (the lower sum turns
+    NaN and kills nothing from its block on). Thresholds are the tight
+    ones (tight_thresh), so candidates die at every depth."""
+    import torch
+
+    from repro_torch.index.compressed import build_band
+    from repro_torch.kernels import ref
+
+    X = index.X
+    n, d = X.shape
+    kappa = K // 2
+    out = {}
+    by_label = {label: (p, base, c, thr) for label, p, base, c, thr in cases}
+    for label in ("0.8", "2.0", "mixed"):
+        p, base, c, _ = by_label[label]
+        batch = c.ids[:, K:K + kappa].contiguous()
+        sb = c.base_dists[:, K:K + kappa].contiguous()
+        thr = tight_thresh(Qp, batch, band, p)
+        for w in (8, 16):
+            for sbn, sbc in (("base_bound", sb), ("no_bound", torch.zeros_like(sb))):
+                nd, st = screen_case(Qp, batch, band, thr, sbc, p, base, w,
+                                     f"{label} block_d={w} {sbn}")
+                st["kills_past_256_dims"] = int(((nd > 256) & (nd < d)).sum())
+                out[f"block_d={w} p={label} {sbn}"] = st
+    check(sum(v["kills_past_256_dims"] for k, v in out.items() if "block_d=8 " in k) > 0,
+          "gather_lp_screen block_d = 8: no kill in the second chunk of 32 blocks")
+    for label in ("1.25", "mixed"):
+        p, base, c, thr_k = by_label[label]
+        for width in (1, 37):
+            batch = c.ids[:, K:K + width].contiguous()
+            sb = c.base_dists[:, K:K + width].contiguous()
+            for tn, thr in (("path", thr_k), ("tight", tight_thresh(Qp, batch, band, p))):
+                out[f"C={width} p={label} {tn}"] = screen_case(
+                    Qp, batch, band, thr, sb, p, base, bd, f"{label} C={width} {tn}")[1]
+    for label in ("0.5", "mixed"):
+        p, base, c, thr_k = by_label[label]
+        batch = c.ids[:, K:K + kappa]                    # views: row stride t
+        sb = c.base_dists[:, K:K + kappa]
+        check(batch.stride(1) == 1 and batch.stride(0) > kappa, "strided slices")
+        for tn, thr in (("path", thr_k), ("tight", tight_thresh(Qp, batch, band, p))):
+            out[f"strided p={label} {tn}"] = screen_case(Qp, batch, band, thr, sb, p, base, bd,
+                                                          f"{label} strided {tn}")[1]
+    # d = 37: its own band over the corpus's first 37 coordinates
+    X37, Q37 = X[:, :37].contiguous(), Q[:, :37].contiguous()
+    band37 = build_band(X37)
+    Qp37 = Q37[:, band37.perm].contiguous()
+    for label in ("0.8", "2.0", "mixed"):
+        p, base, c, _ = by_label[label]
+        batch = c.ids[:, K:K + kappa].contiguous()
+        sb = ref.gather_lp_ref(Q37, batch, X37, base).contiguous()
+        thr = kth_smallest(ref.gather_lp_ref(Q37, c.ids[:, :K].contiguous(), X37, p))
+        for tn, th in (("path", thr), ("tight", tight_thresh(Qp37, batch, band37, p))):
+            out[f"d=37 p={label} {tn}"] = screen_case(Qp37, batch, band37, th, sb, p, base, 37,
+                                                       f"{label} d=37 {tn}")[1]
+    # frozen and +inf rows, padding ids, NaN coordinates
+    rows = torch.arange(Q.shape[0], device=Q.device)
+    for label in ("1.25", "mixed"):
+        p, base, c, _ = by_label[label]
+        batch = c.ids[:, K:K + kappa].clone()
+        sb = c.base_dists[:, K:K + kappa].contiguous()
+        pad = rows % 5 == 3
+        batch[pad, 0] = -1
+        batch[pad, 1] = n
+        batch[pad, 2] = n + 7
+        thr = tight_thresh(Qp, batch, band, p)
+        thr = torch.where(rows % 8 == 1, -torch.inf, torch.where(rows % 8 == 2, torch.inf, thr))
+        qn = Qp.clone()
+        qn[4, 100] = float("nan")                        # in the fourth block
+        qn[12, 0] = float("nan")                         # in the first
+        qn[20, d - 1] = float("nan")                     # in the last
+        for sbn, sbc in (("base_bound", sb), ("no_bound", torch.zeros_like(sb))):
+            nd, st = screen_case(qn, batch, band, thr.contiguous(), sbc, p, base, bd,
+                                 f"{label} frozen/inf/padding/NaN {sbn}")
+            check(bool((nd[rows % 8 == 1] == 0).all()), "a frozen row scanned")
+            st["nan_rows_nd"] = nd[[4, 12, 20]].tolist()
+            out[f"frozen/inf/padding/NaN p={label} {sbn}"] = st
+    return out
+
+
 def phase_kernels_bulk(index, Q, build_rec):
     """pairwise_lp at every upper-level call of the bulk build and at the
     shared-ids form, gather_lp at the build's own scoring shape (its
     multi-p form on the build's recorded round-2 block and on random ids),
-    gather_lp_screen at the band search's shapes and at thresholds that
-    kill, each against its plain version."""
+    gather_lp_screen at the band search's shapes, at thresholds that kill
+    and at shapes the band search's defaults do not reach, each against
+    its plain version."""
     import torch
 
-    from repro_torch.core.metrics import base_metric_for
     from repro_torch.kernels import lp_distance as kd
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ops import pick_abandon_block_d
 
     t0 = _now()
     X = index.X
@@ -965,49 +1143,14 @@ def phase_kernels_bulk(index, Q, build_rec):
             emit({"phase": "kernels_bulk", "kernel": "pairwise_lp",
                   "case": f"ragged p={p}", "shape": [b, nn, dd], **errs})
 
-    # the screen on the band search's kappa batches
-    band = index.compressed_band()
-    Qp = Q[:, band.perm].contiguous()
-    kappa = K // 2
-    bd = pick_abandon_block_d(d)
-    cands = {b: index.search_stage_candidates(Q, b, K) for b in (1.0, 2.0)}
-    cases = [(str(p), p, base_metric_for(p)) for p in P_SCALAR] + [("mixed", p_mix, 1.0)]
-    for label, p, base in cases:
-        c = cands[base]
-        first = c.ids[:, :K].contiguous()
-        thresh = torch.sort(ref.gather_lp_ref(Q, first, X, p), dim=1).values[:, K - 1]
-        thresh = thresh.contiguous()
-        batch = c.ids[:, K:K + kappa].contiguous()
-        sb = c.base_dists[:, K:K + kappa].contiguous()
-        nd, stats = screen_case(Qp, batch, band, thresh, sb, p, base, bd, label)
-        # also a batch that mostly survives: the last kappa of the first k,
-        # with every 8th row frozen (-inf) and every 8th unbounded (+inf)
-        r8 = torch.arange(Q.shape[0], device=dev) % 8
-        thr2 = torch.where(r8 == 1, -torch.inf, torch.where(r8 == 2, torch.inf, thresh))
-        _, s_stats = screen_case(Qp, c.ids[:, K - kappa:K].contiguous(), band,
-                                 thr2.contiguous(), c.base_dists[:, K - kappa:K].contiguous(),
-                                 p, base, bd, label + " survivors")
-        check(s_stats["survivors"] > 0, f"no screen survivors to compare at p={label}")
-        t_stats = screen_tight(Qp, batch, band, sb, p, base, bd, label)
-        ope = ops_per_element(p)
-        ope_rows = np.broadcast_to(ope, (Q.shape[0],)) if ope.size > 1 else ope[0]
-        scanned = nd.sum(1).cpu().numpy()
-        live_rows = int((nd.sum(1) > 0).sum())
-        nbytes = scanned.sum() + 4 * live_rows * d + 8 * d + 4 * (4 * batch.numel()
-                                                                  + 2 * Q.shape[0])
-        bnd = bound(nbytes, float(np.sum(scanned * (ope_rows + OPS_SCREEN_EXTRA))))
-        row = {"p": label, "base_p": base, "shape": list(batch.shape), "block_d": bd, **stats,
-               "survivor_case": s_stats, "tight_cases": t_stats, "band_frac": float(scanned.sum() / (batch.numel() * d)),
-               "max_abs_err": 0.0,
-               **kernel_ms(lambda: kd.gather_lp_screen(Qp, batch, band.codes, band.scale,
-                                                       band.radius, thresh, sb, p, base, bd)),
-               "plain_ms": median_ms(lambda: ref.gather_lp_screen_ref(
-                   Qp, batch, band.codes, band.scale, band.radius, thresh, sb, p, base, bd)),
-               "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
-        out["gather_lp_screen"].append(row)
+    # the screen on the band search's kappa batches, then at shapes its
+    # defaults do not reach
+    out["gather_lp_screen"], setup = screen_path_rows(index, Q, p_mix)
+    for row in out["gather_lp_screen"]:
         emit({"phase": "kernels_bulk", "kernel": "gather_lp_screen", **row})
-    suffix = sum(r["tight_cases"]["base_bound"]["suffix_kills"] for r in out["gather_lp_screen"])
-    check(suffix > 0, "gather_lp_screen: the suffix test killed no candidate in any tight case")
+    out["gather_lp_screen_shapes"] = screen_shapes(index, Q, *setup)
+    emit({"phase": "kernels_bulk", "kernel": "gather_lp_screen",
+          "shape_cases": out["gather_lp_screen_shapes"]})
     emit({"phase": "kernels_bulk", "seconds": _now() - t0})
     return out, worst
 
@@ -1092,7 +1235,7 @@ def phase_kernels_rest(index, Q):
     c = X[ids].contiguous()                                  # (B, t, d)
     b, t, d = c.shape
     p_mix = torch.from_numpy(mixed_p(b)).to(X.device)
-    cases = [(str(p), p) for p in P_SCALAR] + [("mixed", p_mix)]
+    cases = [(str(p), p) for p in ROWWISE_P] + [("mixed", p_mix)]
     topk_cases = [(p, k) for p in P_SCALAR for k in (10, 50)]
 
     def path():
@@ -1205,6 +1348,7 @@ def phase_kernels_rest(index, Q):
 
 
 SHARDED_P = (0.5, 1.25, 2.0)
+ROWWISE_P = (0.5, 0.8, 1.0, 1.25, 1.5, 2.0)   # every p family of the rowwise kernel
 SEGMENTS = 4
 DELTA_ROWS = 512
 DELTA_CAPACITY = 1024
@@ -1330,6 +1474,28 @@ def phase_sharded(X, Q, truth, mono_results):
             check(bool((safe[p][0][rows] == results["independent"][p][0][rows]).all()),
                   f"sharded: equal candidates gave other ids at p={p}")
     idx.sharded_params = policies["independent"]
+    # the two-band verification on the sharded index: the independent
+    # policy's ids, through the screen
+    from dataclasses import replace
+
+    prm0 = idx.params
+    idx.params = replace(prm0, compressed_band=True)
+    _search(idx, Q, 0.8)                               # builds the band; not counted
+    band_res, band_counts = counted(
+        lambda: {p: _search(idx, Q, mixed_p(Q.shape[0]) if p == "mixed" else p)
+                 for p in (1.25, "mixed")})
+    idx.params = prm0
+    check(band_counts["gather_lp_screen"] > 0,
+          f"sharded band search did not launch gather_lp_screen: {band_counts}")
+    band_report = {"launches": band_counts}
+    for p, (ids, _, st, secs) in band_res.items():
+        check(bool((ids == results["independent"][p][0]).all()),
+              f"sharded band search: ids differ from the independent policy's at p={p}")
+        band_report[str(p)] = {
+            "ids_equal_independent": True, "batch_seconds": secs,
+            "n_f32_rows_frac": float(torch.as_tensor(st.n_f32_rows_frac).float().mean()),
+            "n_band_frac": float(torch.as_tensor(st.n_band_frac).float().mean()),
+            "mean_n_p": float(st.n_p.float().mean())}
     with plain_versions():
         plain = {p: _search(idx, Q, mixed_p(Q.shape[0]) if p == "mixed" else p)
                  for p in (0.5, "mixed")}
@@ -1339,7 +1505,8 @@ def phase_sharded(X, Q, truth, mono_results):
     emit({"phase": "sharded", "seconds": _now() - t0, "build_seconds": build_seconds,
           "segment_sizes": sizes, "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
           "build_launches": build_launched, "candidate_checks": cand_checks,
-          "two_phase_thresh_rank_t": rank_t, "ids_equal_plain": True})
+          "two_phase_thresh_rank_t": rank_t, "ids_equal_plain": True,
+          "compressed_band": band_report})
     return idx, counts
 
 

@@ -9,10 +9,18 @@ The port of `repro` (JAX + Pallas for the TPU), mirroring its layout:
                          batched beam search, U-HNSW (Algorithm 1) with
                          early-abandoning, two-band and energy-ordered
                          verification
-  repro_torch.index    — the compressed int8 band (compressed)
-  repro_torch.kernels  — CUDA kernels (pairwise_lp, gather_lp,
-                         gather_lp_abandon, gather_lp_screen), their plain
-                         PyTorch versions, and the nvcc build that loads them
+  repro_torch.index    — segment (partition and per-segment builds),
+                         sharded (ShardedUHNSW: segments folded into one
+                         batched search; independent / two_phase /
+                         round_robin), delta (the insert buffer and its
+                         compaction), health (segment health and degraded
+                         search), compressed (the int8 band)
+  repro_torch.kernels  — seven CUDA kernel wrappers (pairwise_lp,
+                         rowwise_lp, gather_lp, gather_lp_multi,
+                         gather_lp_abandon, gather_lp_screen in
+                         lp_distance; lp_topk in lp_topk), their plain
+                         PyTorch versions (ref), the dispatchers (ops) and
+                         the nvcc build that loads them (_build)
   repro_torch.convert  — carries a reference index into the port
 
 Entry points run on "cuda" unless the caller passes device="cpu"; on CPU

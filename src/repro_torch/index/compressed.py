@@ -17,7 +17,7 @@ The quantisation is symmetric per coordinate (codes in [-127, 127]); the
 radii are the exact f32 maxima of the dequantisation error. The band is
 built in NumPy on the host, as the reference builds it, so the same corpus
 gives the same bytes in both packages; its tensors land on the corpus's
-device.
+device (a host array's on the card, unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -73,15 +73,18 @@ def energy_order(X) -> np.ndarray:
     return np.argsort(-var, kind="stable").astype(np.int32)
 
 
-def build_band(X, perm: np.ndarray | None = None) -> CompressedBand:
+def build_band(X, perm: np.ndarray | None = None, *, device=None) -> CompressedBand:
     """Quantises a frozen corpus into its compressed band.
 
-    X: (n, d) f32 numpy array or tensor; the band lands on the tensor's
-    device (the CPU for a numpy array). perm: optional (d,) coordinate
-    permutation, None for the energy order. Deterministic: the same X gives
+    X: (n, d) f32 numpy array or tensor. perm: optional (d,) coordinate
+    permutation, None for the energy order. device: where the band's
+    tensors live; None keeps a tensor's band on the tensor's device and
+    puts a host array's on "cuda" (pass device="cpu" for the CPU), as the
+    reference's band is device-resident. Deterministic: the same X gives
     the same band.
     """
-    device = X.device if torch.is_tensor(X) else "cpu"
+    if device is None:
+        device = X.device if torch.is_tensor(X) else "cuda"
     Xh = np.ascontiguousarray(_host(X), dtype=np.float32)
     n, d = Xh.shape
     if perm is None:

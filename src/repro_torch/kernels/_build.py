@@ -35,10 +35,9 @@ LAUNCHERS = {
     "gather_lp_multi": ("gather_lp_multi_launch", [_P, _F, _F]),
     "gather_lp_abandon": ("gather_lp_abandon_launch", [_P, _F]),
     "pairwise_lp": ("pairwise_lp_launch", [_P, _P, _P, _F, _P, _I, _I, _I, _P]),
-    "rowwise_lp": ("rowwise_lp_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "rowwise_lp": ("rowwise_lp_launch", [_P, _F]),
     "lp_topk": ("lp_topk_launch", [_P, _F]),
-    "gather_lp_screen": ("gather_lp_screen_launch",
-                         [_P] * 10 + [_I, _I, _I, _I, _I, _I, _P]),
+    "gather_lp_screen": ("gather_lp_screen_launch", [_P, _F]),
 }
 
 

@@ -106,13 +106,24 @@ _PACKED = threading.local()
 
 def _packed(*args) -> int:
     """The address of this thread's int64 argument array, its first
-    len(args) entries filled with args (ints, at most 17): one ctypes
+    len(args) entries filled with args (ints, at most 24): one ctypes
     argument in place of many."""
     buf = getattr(_PACKED, "buf", None)
     if buf is None:
-        buf = _PACKED.buf = (ctypes.c_int64 * 17)()
+        buf = _PACKED.buf = (ctypes.c_int64 * 24)()
     buf[:len(args)] = args
     return ctypes.addressof(buf)
+
+
+def _row_strided(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(t with unit column stride, its row stride): a column slice of a
+    wider (B, C) tensor goes to a kernel as it is, read through its row
+    stride; anything else is copied."""
+    stride = t.stride()
+    if stride[1] != 1:
+        t = t.contiguous()
+        stride = t.stride()
+    return t, stride[0]
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -157,20 +168,27 @@ def rowwise_lp(q: torch.Tensor, c: torch.Tensor, p) -> torch.Tensor:
     q (B, d) f32, c (B, C, d) f32 pre-gathered candidate rows, p a float or
     (B,) tensor. Rows under p = 2 sum the squared differences directly; the
     Pallas kernel takes the product identity |q|^2 + |c|^2 - 2 q.c there,
-    which differs from it by the identity's cancellation error.
+    which differs from it by the identity's cancellation error. Under a p
+    outside {0.5, 1, 1.5, 2} the kernel takes a^p on the special function
+    unit (csrc/rowwise_lp.cu), within about 2^-21 of the plain version's
+    power per term. A scalar p goes in as a kernel argument.
     """
     if _on_cpu(q):
         return rowwise_lp_ref(q, c, p)
     b, d = q.shape
     cc = c.shape[1]
-    q = q.contiguous()
-    c = c.contiguous()
-    _check("q", q, torch.float32, (b, d), c.device)
-    _check("c", c, torch.float32, (b, cc, d), q.device)
-    pv = _p_rows(p, b, q.device)
-    out = torch.empty((b, cc), dtype=torch.float32, device=q.device)
-    err = _build.launcher("rowwise_lp")(
-        q.data_ptr(), c.data_ptr(), pv.data_ptr(), out.data_ptr(), b, cc, d, _stream())
+    if not q.is_contiguous():
+        q = q.contiguous()
+    if not c.is_contiguous():
+        c = c.contiguous()
+    if not (q.dtype == c.dtype == torch.float32 and c.get_device() == q.get_device()
+            and c.shape == (b, cc, d)):
+        _check("q", q, torch.float32, (b, d), c.device)
+        _check("c", c, torch.float32, (b, cc, d), q.device)
+    pv, p_ptr, p_scalar = _p_launch(p, b, q)
+    out = q.new_empty(b, cc)
+    err = _build.launcher("rowwise_lp")(_packed(
+        q.data_ptr(), c.data_ptr(), p_ptr, out.data_ptr(), b, cc, d, _stream(q)), p_scalar)
     rowwise_lp.launches += 1
     _raise_on(err, "rowwise_lp")
     return out
@@ -309,14 +327,8 @@ def gather_lp_abandon(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"block_d={block_d} does not divide d={d}")
     if ids.dtype != torch.int32:
         ids = ids.to(torch.int32)
-    ids_stride = ids.stride()
-    if ids_stride[1] != 1:
-        ids = ids.contiguous()
-        ids_stride = ids.stride()
-    sb_stride = sb.stride()
-    if sb_stride[1] != 1:
-        sb = sb.contiguous()
-        sb_stride = sb.stride()
+    ids, ids_stride = _row_strided(ids)
+    sb, sb_stride = _row_strided(sb)
     if not q.is_contiguous():
         q = q.contiguous()
     if not x.is_contiguous():
@@ -337,8 +349,8 @@ def gather_lp_abandon(q: torch.Tensor, ids: torch.Tensor, x: torch.Tensor,
     out = q.new_empty(b, c)
     nd = ids.new_empty(b, c)
     err = _build.launcher("gather_lp_abandon")(_packed(
-        ids.data_ptr(), ids_stride[0], q.data_ptr(), thresh.data_ptr(), sb.data_ptr(),
-        sb_stride[0], x.data_ptr(), p_ptr, out.data_ptr(), nd.data_ptr(), b, c, n, d,
+        ids.data_ptr(), ids_stride, q.data_ptr(), thresh.data_ptr(), sb.data_ptr(),
+        sb_stride, x.data_ptr(), p_ptr, out.data_ptr(), nd.data_ptr(), b, c, n, d,
         block_d, 1 if base_p == 1.0 else 0, _stream(q)), p_scalar)
     gather_lp_abandon.launches += 1
     _raise_on(err, "gather_lp_abandon")
@@ -349,18 +361,22 @@ def gather_lp_screen(q: torch.Tensor, ids: torch.Tensor, codes: torch.Tensor,
                      scale: torch.Tensor, radius: torch.Tensor, thresh: torch.Tensor,
                      sb: torch.Tensor, p, base_p: float,
                      block_d: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Compressed-band screen -> (keep (B, C) int32 0/1, nd (B, C) int32).
+    """Compressed-band screen -> (keep (B, C) bool, nd (B, C) int32).
 
     q (B, d) f32 in the band's coordinate order; codes (n, d) int8;
     scale, radius (d,) f32; thresh (B,) f32 (-inf freezes the row, +inf
     keeps every valid candidate); sb (B, C) f32 base-metric power sums (0
     disables the bounds) in the metric named by base_p (1.0 or 2.0);
-    block_d must divide d. Padding never survives.
+    block_d must divide d. Padding never survives. ids (int32) and sb may
+    be column slices of wider tensors: the kernel reads them through their
+    row strides, so the verification loop's kappa-column slices go in
+    without a copy; a scalar p goes in as a kernel argument. The loop calls
+    this once per kappa batch, so the checks are kept to cheap attribute
+    reads (the message is built on failure).
     """
     if _on_cpu(q):
-        keep, nd = gather_lp_screen_ref(q, ids, codes, scale, radius, thresh, sb, p,
-                                        base_p, block_d)
-        return keep.to(torch.int32), nd
+        return gather_lp_screen_ref(q, ids, codes, scale, radius, thresh, sb, p, base_p,
+                                    block_d)
     b, d = q.shape
     c = ids.shape[1]
     n = codes.shape[0]
@@ -368,27 +384,39 @@ def gather_lp_screen(q: torch.Tensor, ids: torch.Tensor, codes: torch.Tensor,
         raise ValueError(f"base_p must be 1.0 or 2.0, got {base_p}")
     if block_d <= 0 or d % block_d:
         raise ValueError(f"block_d={block_d} does not divide d={d}")
-    ids = ids.to(torch.int32).contiguous()
-    q = q.contiguous()
-    codes = codes.contiguous()
-    scale = scale.to(torch.float32).contiguous()
-    radius = radius.to(torch.float32).contiguous()
-    thresh = thresh.to(torch.float32).contiguous()
-    sb = sb.to(torch.float32).contiguous()
-    _check("q", q, torch.float32, (b, d), codes.device)
-    _check("codes", codes, torch.int8, (n, d), q.device)
-    _check("ids", ids, torch.int32, (b, c), q.device)
-    _check("scale", scale, torch.float32, (d,), q.device)
-    _check("radius", radius, torch.float32, (d,), q.device)
-    _check("thresh", thresh, torch.float32, (b,), q.device)
-    _check("sb", sb, torch.float32, (b, c), q.device)
-    pv = _p_rows(p, b, q.device)
-    keep = torch.empty((b, c), dtype=torch.int32, device=q.device)
-    nd = torch.empty((b, c), dtype=torch.int32, device=q.device)
-    err = _build.launcher("gather_lp_screen")(
-        ids.data_ptr(), q.data_ptr(), thresh.data_ptr(), sb.data_ptr(), codes.data_ptr(),
-        scale.data_ptr(), radius.data_ptr(), pv.data_ptr(), keep.data_ptr(), nd.data_ptr(),
-        b, c, n, d, block_d, 1 if base_p == 1.0 else 0, _stream())
+    if ids.dtype != torch.int32:
+        ids = ids.to(torch.int32)
+    ids, ids_stride = _row_strided(ids)
+    sb, sb_stride = _row_strided(sb)
+    if not q.is_contiguous():
+        q = q.contiguous()
+    if not codes.is_contiguous():
+        codes = codes.contiguous()
+    if not thresh.is_contiguous():
+        thresh = thresh.contiguous()
+    di = q.get_device()
+    pv, p_ptr, p_scalar = _p_launch(p, b, q)
+    if not (q.dtype == sb.dtype == thresh.dtype == scale.dtype == radius.dtype == torch.float32
+            and codes.dtype == torch.int8 and codes.get_device() == ids.get_device()
+            == sb.get_device() == thresh.get_device() == scale.get_device()
+            == radius.get_device() == di and codes.shape[1] == d and ids.shape[0] == b
+            and sb.shape == (b, c) and thresh.shape == (b,) and scale.shape == (d,)
+            and radius.shape == (d,) and scale.is_contiguous() and radius.is_contiguous()):
+        _check("q", q, torch.float32, (b, d), codes.device)
+        _check("codes", codes, torch.int8, (n, d), q.device)
+        _check("ids", ids, torch.int32, (b, c), q.device)
+        _check("scale", scale, torch.float32, (d,), q.device)
+        _check("radius", radius, torch.float32, (d,), q.device)
+        _check("thresh", thresh, torch.float32, (b,), q.device)
+        _check("sb", sb, torch.float32, (b, c), q.device)
+        raise ValueError("gather_lp_screen: scale and radius must be contiguous")
+    keep = torch.empty((b, c), dtype=torch.bool, device=q.device)
+    nd = ids.new_empty(b, c)
+    err = _build.launcher("gather_lp_screen")(_packed(
+        ids.data_ptr(), ids_stride, q.data_ptr(), thresh.data_ptr(), sb.data_ptr(),
+        sb_stride, codes.data_ptr(), scale.data_ptr(), radius.data_ptr(), p_ptr,
+        keep.data_ptr(), nd.data_ptr(), b, c, n, d, block_d, 1 if base_p == 1.0 else 0,
+        _stream(q)), p_scalar)
     gather_lp_screen.launches += 1
     _raise_on(err, "gather_lp_screen")
     return keep, nd

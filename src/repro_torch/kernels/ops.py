@@ -123,6 +123,4 @@ def lp_gather_screen(q: torch.Tensor, ids: torch.Tensor, codes: torch.Tensor,
     """
     p = _p_arg(p, q.shape[0], q.device)
     bd = block_d or pick_abandon_block_d(q.shape[1])
-    keep, nd = _k.gather_lp_screen(q, ids, codes, scale, radius, thresh, sb, p,
-                                   float(base_p), bd)
-    return keep.bool(), nd
+    return _k.gather_lp_screen(q, ids, codes, scale, radius, thresh, sb, p, float(base_p), bd)

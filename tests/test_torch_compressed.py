@@ -35,7 +35,7 @@ from repro_torch.core.uhnsw import UHNSW, UHNSWParams, verify_candidates
 from repro_torch.index import compressed as tcomp
 from repro_torch.kernels import lp_distance
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.ref import gather_lp_screen_ref
+from repro_torch.kernels.ref import gather_lp_ref, gather_lp_screen_ref
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 VERIFY_DS = Path(__file__).resolve().parents[1] / "results/bench_cache/verify_ds_d96_n1500_q16.pkl"
@@ -81,7 +81,7 @@ def test_build_band_matches_reference():
     assert (got.n, got.d) == (want.n, want.d)
     np.testing.assert_array_equal(tcomp.energy_order(X), rcomp.energy_order(X))
     perm = np.random.default_rng(2).permutation(X.shape[1]).astype(np.int32)
-    np.testing.assert_array_equal(tcomp.build_band(X, perm).codes.numpy(),
+    np.testing.assert_array_equal(tcomp.build_band(X, perm, device="cpu").codes.numpy(),
                                   np.asarray(rcomp.build_band(X, perm).codes))
 
 
@@ -93,7 +93,7 @@ def test_compressed_lower_bound_matches_reference(p):
     tp, rp = _p_pair(p, Q.shape[0])
     want = rcomp.compressed_lower_bound(jnp.asarray(Q[:, perm]), band.codes[:40], band.scale,
                                         band.radius, rp)
-    tband = tcomp.build_band(X)
+    tband = tcomp.build_band(X, device="cpu")
     got = tcomp.compressed_lower_bound(torch.from_numpy(Q[:, perm]), tband.codes[:40],
                                        tband.scale, tband.radius, tp)
     _close(got, want)
@@ -114,7 +114,7 @@ def test_gather_lp_screen_ref_matches_reference(p, base_p):
     without base bounds."""
     X, Q, ids, rng = _screen_case()
     band = rcomp.build_band(X)
-    tband = tcomp.build_band(X)
+    tband = tcomp.build_band(X, device="cpu")
     Qp = Q[:, np.asarray(band.perm)]
     tp, rp = _p_pair(p, Q.shape[0], seed=3)
     full = np.asarray(rops.lp_gather_distance(jnp.asarray(Q), jnp.asarray(ids), jnp.asarray(X),
@@ -148,7 +148,7 @@ def test_gather_lp_screen_ref_matches_reference(p, base_p):
 
 def test_screen_wrapper_runs_plain_version_on_cpu_without_counting():
     X, Q, ids, _ = _screen_case(seed=16)
-    band = tcomp.build_band(X)
+    band = tcomp.build_band(X, device="cpu")
     Qp = torch.from_numpy(Q)[:, band.perm]
     thr = torch.full((Q.shape[0],), 50.0)
     sb = torch.zeros(ids.shape)
@@ -157,10 +157,100 @@ def test_screen_wrapper_runs_plain_version_on_cpu_without_counting():
                                             band.radius, thr, sb, 0.8, 1.0, 32)
     want = gather_lp_screen_ref(Qp, torch.from_numpy(ids), band.codes, band.scale, band.radius,
                                 thr, sb, 0.8, 1.0, 32)
-    assert keep.dtype == torch.int32
-    np.testing.assert_array_equal(keep.numpy(), want[0].numpy().astype(np.int32))
+    assert keep.dtype == torch.bool     # the kernel writes keep as one byte a slot
+    np.testing.assert_array_equal(keep.numpy(), want[0].numpy())
     np.testing.assert_array_equal(nd.numpy(), want[1].numpy())
     assert lp_distance.launch_counts()["gather_lp_screen"] == 0
+
+
+def _loop_inputs(seed=17, b=8, t=25, n=300, d=64):
+    """What the two-band verification loop holds: wide (B, t) candidate ids
+    (padding among them) and base sums, from which it hands the screen
+    kappa-column slices; queries in band order; thresholds near each row's
+    survivors, with a frozen (-inf) and an unbounded (+inf) row."""
+    X, Q, ids, _ = _screen_case(seed=seed, b=b, c=t, n=n, d=d)
+    band = tcomp.build_band(X, device="cpu")
+    Qp = torch.from_numpy(Q)[:, band.perm].contiguous()
+    ids = torch.from_numpy(ids)
+    base = gather_lp_ref(torch.from_numpy(Q), ids, torch.from_numpy(X), 1.0)
+    sb = torch.where(base.isfinite(), base, 0.0)
+    full = gather_lp_ref(torch.from_numpy(Q), ids, torch.from_numpy(X), 0.8)
+    thr = torch.nanquantile(torch.where(full.isfinite(), full, torch.nan), 0.3, dim=1)
+    thr[1], thr[2] = -torch.inf, torch.inf
+    return band, Qp, ids, sb, thr
+
+
+@pytest.mark.parametrize("p", [0.8, 1.25, "rows"])
+@pytest.mark.parametrize("start", [5, 10, 20])
+def test_screen_dispatcher_takes_kappa_slices_and_int64_ids(p, start):
+    """ops.lp_gather_screen on the loop's column slices (not contiguous),
+    with int32 and int64 ids, returns a bool keep and an int32 nd equal to
+    the plain version's on contiguous copies."""
+    band, Qp, ids, sb, thr = _loop_inputs()
+    tp = torch.from_numpy(np.resize(MIXED, Qp.shape[0])) if p == "rows" else p
+    sl = slice(start, start + 5)
+    batch, sbs = ids[:, sl], sb[:, sl]
+    assert not batch.is_contiguous() and not sbs.is_contiguous()
+    want = gather_lp_screen_ref(Qp, batch.contiguous(), band.codes, band.scale, band.radius,
+                                thr, sbs.contiguous(), tp, 1.0, 16)
+    for ids_in in (batch, batch.long()):
+        keep, nd = tops.lp_gather_screen(Qp, ids_in, band.codes, band.scale, band.radius, thr,
+                                         sbs, tp, base_p=1.0, block_d=16)
+        assert keep.dtype == torch.bool and nd.dtype == torch.int32
+        assert keep.shape == nd.shape == (Qp.shape[0], 5)
+        np.testing.assert_array_equal(keep.numpy(), want[0].numpy())
+        np.testing.assert_array_equal(nd.numpy(), want[1].numpy())
+
+
+@pytest.mark.parametrize("base_p", [1.0, 2.0])
+def test_screen_row_p_rows_equal_scalar_calls(base_p):
+    """A (B,) p screens row i as the scalar call at p[i] does, and a (B,)
+    p of one value as that scalar."""
+    band, Qp, ids, sb, thr = _loop_inputs(seed=18)
+    pv = torch.from_numpy(np.resize(MIXED, Qp.shape[0]))
+    keep, nd = tops.lp_gather_screen(Qp, ids, band.codes, band.scale, band.radius, thr, sb, pv,
+                                     base_p=base_p)
+    for p in np.unique(pv.numpy()):
+        rows = np.flatnonzero(pv.numpy() == p)
+        k1, n1 = tops.lp_gather_screen(Qp, ids, band.codes, band.scale, band.radius, thr, sb,
+                                       float(p), base_p=base_p)
+        np.testing.assert_array_equal(keep[rows].numpy(), k1[rows].numpy())
+        np.testing.assert_array_equal(nd[rows].numpy(), n1[rows].numpy())
+        kc, nc = tops.lp_gather_screen(Qp, ids, band.codes, band.scale, band.radius, thr, sb,
+                                       torch.full((Qp.shape[0],), float(p)), base_p=base_p)
+        np.testing.assert_array_equal(kc.numpy(), k1.numpy())
+        np.testing.assert_array_equal(nc.numpy(), n1.numpy())
+
+
+@pytest.mark.parametrize("p", [0.5, 2.0, "rows"])
+def test_screen_frozen_rows_and_padding_scan_nothing(p):
+    """A frozen row keeps nothing and scans nothing; padding ids never
+    survive and scan nothing; an unbounded row keeps every valid candidate
+    after scanning all of it."""
+    band, Qp, ids, sb, thr = _loop_inputs(seed=19)
+    tp = torch.from_numpy(np.resize(MIXED, Qp.shape[0])) if p == "rows" else p
+    keep, nd = tops.lp_gather_screen(Qp, ids, band.codes, band.scale, band.radius, thr, sb, tp,
+                                     base_p=1.0, block_d=8)
+    pad = (ids < 0) | (ids >= band.n)
+    assert pad.any() and not keep[pad].any() and not nd[pad].any()
+    assert not keep[1].any() and not nd[1].any()                   # frozen
+    assert bool(keep[2][~pad[2]].all()) and bool((nd[2][~pad[2]] == band.d).all())  # +inf
+
+
+def test_build_band_follows_the_device_rule():
+    """A tensor's band stays on its device; a host array's goes to the card
+    unless device="cpu" (or another device) is passed."""
+    X, _ = _corpus(n=50, d=16, seed=20)
+    assert tcomp.build_band(X, device="cpu").codes.device.type == "cpu"
+    cpu = tcomp.build_band(torch.from_numpy(X))
+    assert all(getattr(cpu, f).device.type == "cpu" for f in ("codes", "scale", "radius", "perm"))
+    meta = tcomp.build_band(X, device="meta")
+    assert all(getattr(meta, f).device.type == "meta" for f in ("codes", "scale", "radius", "perm"))
+    if torch.cuda.is_available():
+        assert tcomp.build_band(X).codes.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            tcomp.build_band(X)
 
 
 # ---------------------------------------------------------------------------

@@ -125,7 +125,7 @@ def test_ops_dispatchers_positional_interpret():
     for a, w in zip(pos, kw):
         np.testing.assert_array_equal(a.numpy(), w.numpy())
     assert {int(v) for v in kw[1].unique()} - {0, d}, "block_d = 8 must scan partial rows"
-    band = t_build_band(x.numpy())
+    band = t_build_band(x.numpy(), device="cpu")
     qp = q[:, band.perm].contiguous()
     pos = tops.lp_gather_screen(qp, ids, band.codes, band.scale, band.radius, thr * 0.5, sb, 0.8,
                                 1.0, None, None, None, 8)
@@ -171,7 +171,7 @@ def test_nn_descent_pools_positional_and_trajectory():
 
 def test_band_nbytes_matches_reference():
     x = np.random.default_rng(4).standard_normal((123, 40)).astype(np.float32)
-    assert t_build_band(x).nbytes() == r_build_band(x).nbytes() == 123 * 40 + 12 * 40
+    assert t_build_band(x, device="cpu").nbytes() == r_build_band(x).nbytes() == 123 * 40 + 12 * 40
 
 
 @pytest.mark.parametrize("p", P_GRID + [0.7, 1.9])

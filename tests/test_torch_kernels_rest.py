@@ -80,6 +80,19 @@ def test_rowwise_per_row_p_matches_pallas_and_scalar_rows(shape, root):
         torch.from_numpy(q), torch.from_numpy(cands), 1.3, root=root).numpy())
 
 
+@pytest.mark.parametrize("p", [0.5, 0.8, 1.0, 1.25, 1.5, 2.0])
+def test_rowwise_wrapper_rows_equal_under_scalar_and_row_p(p):
+    """The wrapper scores a (B,) p of one value as the scalar p: the kernel
+    takes the scalar as an argument and the vector through a pointer, and
+    picks each row's p family from its own p."""
+    q, cands = _rowwise_case(5, 17, 48, seed=9)
+    tq, tc = torch.from_numpy(q), torch.from_numpy(cands)
+    scalar = lp_distance.rowwise_lp(tq, tc, p)
+    rows = lp_distance.rowwise_lp(tq, tc, torch.full((5,), p))
+    assert scalar.dtype == torch.float32 and scalar.shape == (5, 17)
+    np.testing.assert_array_equal(scalar.numpy(), rows.numpy())
+
+
 def _assert_topk_matches(got_d, got_i, want_d, want_i, all_d, k):
     """dists within REL; ids equal, or a tie at the k-th distance."""
     got_d, got_i = np.asarray(got_d), np.asarray(got_i)

@@ -319,6 +319,22 @@ def test_kernel_sources_match_their_ctypes_signatures():
         assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
+@pytest.mark.parametrize("cols", [slice(10, 15), slice(0, 1), slice(0, 40)])
+def test_row_strided_keeps_column_slices_and_copies_the_rest(cols):
+    """A column slice of a wider (B, C) tensor goes to the gather kernels
+    as it is, with its row stride; a tensor whose columns are not adjacent
+    is copied."""
+    wide = torch.arange(6 * 40, dtype=torch.int32).reshape(6, 40)
+    view = wide[:, cols]
+    got, stride = lp_distance._row_strided(view)
+    assert got.data_ptr() == view.data_ptr() and stride == 40
+    np.testing.assert_array_equal(got.numpy(), view.numpy())
+    every_other = wide[:, ::2]
+    got, stride = lp_distance._row_strided(every_other)
+    assert got.is_contiguous() and stride == 20
+    np.testing.assert_array_equal(got.numpy(), every_other.numpy())
+
+
 def test_packed_launch_arguments_round_trip():
     """The gather_lp_abandon launcher takes its arguments as one int64 array
     (csrc/gather_lp_abandon.cu): pointers, strides and sizes come back as

@@ -312,6 +312,27 @@ def test_staged_search_equals_search(make_pair, small_ds):
     np.testing.assert_array_equal((nb_pr + nb_sp).numpy(), fused[2].n_b.numpy())
 
 
+@pytest.mark.parametrize("p", [1.25, "mixed"])
+@pytest.mark.parametrize("flag", ["compressed_band", "energy_perm"])
+def test_band_and_energy_perm_match_reference(make_pair, small_ds, flag, p):
+    """The sharded index's two-band (int8 screen, then an f32 rescore of the
+    survivors) and energy-ordered verification against the reference's on
+    the same segments, independent policy: ids up to near-tie swaps, n_p,
+    n_f32_rows_frac and n_band_frac equal (compare_search); within the
+    port, the default verification's ids."""
+    ref, port = make_pair("independent")
+    ref.params = RParams(t=T, **{flag: True})
+    port.params = UHNSWParams(t=T, **{flag: True})
+    pv = MIXED if p == "mixed" else p
+    ids, _, st = compare_search(ref, port, small_ds.queries, pv)
+    if flag == "compressed_band":
+        assert float(st.n_band_frac.float().mean()) > 0.0
+    _, plain = make_pair("independent")
+    want = plain.search(torch.from_numpy(small_ds.queries),
+                        torch.from_numpy(pv) if p == "mixed" else pv, K)[0]
+    np.testing.assert_array_equal(ids.numpy(), want.numpy())
+
+
 @pytest.mark.parametrize("p", [1.0, 2.0])
 def test_conservative_rank_ids_equal_independent(make_pair, small_ds, p):
     """thresh_rank = t prunes nothing that could enter the merged top-t."""

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the port's pairwise_lp, gather_lp_abandon, gather_lp and lp_topk
-kernels of one source tree on one CUDA card, at the shapes of `chip_smoke.py`.
+"""Times the port's pairwise_lp, gather_lp_abandon, gather_lp, lp_topk,
+gather_lp_screen and rowwise_lp kernels of one source tree on one CUDA card,
+at the shapes of `chip_smoke.py`.
 
     python3 tools/time_torch_kernels.py [--src DIR] [--label NAME] [--variants]
 
@@ -30,16 +31,26 @@ Cases:
   - gather_lp on the query path's first-k call (256 x 10, G1's candidates,
     mixed p);
   - lp_topk at (256, 300, 512) over G1's candidates, k = 10, p = 1.25
-    (device times at p = 1 and 2 beside it).
+    (device times at p = 1 and 2 beside it);
+  - gather_lp_screen on the band search's first kappa batch after the
+    first k (256 x 5, block_d = 32) at each p of the smoke and the mixed
+    batch, the ids and base sums handed over as the verification loop
+    hands them (column slices of the candidate lists), thresholds from the
+    first k; and one tight case (mixed p, no base bounds, thresholds that
+    kill at every depth: `chip_smoke.tight_thresh`);
+  - rowwise_lp at (256, 300, 512) over G1's candidates at p = 0.5, 1,
+    1.25, 2 and the mixed batch.
 With --variants, also gather_lp_multi at other slab sizes
 (`lp_distance.SLAB_BYTES`, 0 = one slab: the sort and the duplicate skip
 alone), where the tree has it.
 Each kernel output is compared with its plain version first (the smoke's
-tolerances). The gather_lp and lp_topk outputs are saved under
-build/time_kernels/ by label; a run whose label differs from a saved one
-reports the largest |this - that| per case (`vs_<label>`: 0 when every
-value has the same bits, inf where only one of the two is finite) and,
-for lp_topk, the share of equal ids. Times: `ms` is the median per-call CUDA-event time around the
+tolerances). The gather_lp, lp_topk, gather_lp_screen and rowwise_lp
+outputs are saved under build/time_kernels/ by label; a run whose label
+differs from a saved one reports the largest |this - that| per case
+(`vs_<label>`: 0 when every value has the same bits, inf where only one
+of the two is finite), for lp_topk the share of equal ids, and for the
+screen the number of slots whose keep or nd differ (`vs_<label>_keep`,
+`vs_<label>_nd`). Times: `ms` is the median per-call CUDA-event time around the
 wrapper (host work included), `device_ms` the device-only time of calls
 captured in a CUDA graph (`chip_smoke.device_ms`), `host_ms` the host's
 time per call over 200 calls issued back to back (the enqueue rate: the
@@ -90,6 +101,8 @@ def compare_saved(label: str, case: str, outs: dict) -> dict:
         for key, val in outs.items():
             if key == "ids":
                 report[f"vs_{other}_ids_equal"] = float((val.cpu() == theirs[key]).float().mean())
+            elif key in ("keep", "nd"):
+                report[f"vs_{other}_{key}"] = int((val.cpu() != theirs[key]).sum())
             else:
                 report[f"vs_{other}" + ("" if key == "out" else f"_{key}")] = max_diff(
                     val.cpu(), theirs[key])
@@ -296,6 +309,47 @@ def main() -> int:
               for p in (1.0, 2.0)},
            **compare_saved(args.label, "lp_topk", {"out": got_d, "ids": got_i})}
     report["lp_topk"] = row
+
+    # gather_lp_screen on the band search's kappa batches, as the loop hands them
+    band, Qp, bd, cases = cs.screen_setup(index, Q, p_mix)
+    kappa_sl = slice(k, k + kappa)
+    screen = {}
+    for label, p, base, cc, thr in cases:
+        batch, sbs = cc.ids[:, kappa_sl], cc.base_dists[:, kappa_sl]
+        screen[f"p={label}"] = (batch, sbs, thr, p, base)
+    cc = cases[-1][3]
+    batch = cc.ids[:, kappa_sl]
+    screen["tight, p=mixed, no bound"] = (batch, torch.zeros(batch.shape, device=dev),
+                                          cs.tight_thresh(Qp, batch, band, p_mix), p_mix, 1.0)
+    for name, (batch, sbs, thr, p, base) in screen.items():
+        nd, stats = cs.screen_case(Qp, batch, band, thr, sbs, p, base, bd, name)
+        keep, _ = kd.gather_lp_screen(Qp, batch, band.codes, band.scale, band.radius, thr, sbs,
+                                      p, base, bd)
+
+        def call():
+            return kd.gather_lp_screen(Qp, batch, band.codes, band.scale, band.radius, thr, sbs,
+                                       p, base, bd)
+
+        report[f"gather_lp_screen {name}"] = {
+            "shape": list(batch.shape), "block_d": bd, **stats, **cs.kernel_ms(call),
+            "host_ms": host_ms(call),
+            **compare_saved(args.label, f"screen_{name.replace(' ', '_').replace(',', '')}",
+                            {"keep": keep.bool(), "nd": nd})}
+
+    # rowwise_lp over G1's 300 candidates a query (cand, as for lp_topk)
+    for label, p in (("0.5", 0.5), ("1.0", 1.0), ("1.25", 1.25), ("2.0", 2.0),
+                     ("mixed", p_mix)):
+        got = kd.rowwise_lp(Q, cand, p)
+        rel, abs_err, mis = cs.rel_err(got, ref.rowwise_lp_ref(Q, cand, p))
+        cs.check(mis == 0 and rel <= cs.RTOL, f"rowwise_lp p={label}: rel {rel}")
+
+        def rowwise():
+            return kd.rowwise_lp(Q, cand, p)
+
+        row = {"shape": list(cand.shape), "max_rel_err": rel, "max_abs_err": abs_err,
+               **cs.kernel_ms(rowwise, reps=20), "host_ms": host_ms(rowwise),
+               **compare_saved(args.label, f"rowwise_{label}", {"out": got})}
+        report[f"rowwise_lp p={label}"] = row
     report["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
