@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 The corpus: the synthetic Sun corpus at its published size (78,306 x 512,
-256 queries, seed 0). Six paths, each driven with the kernels' launch
+256 queries, seed 0). Nine paths, each driven with the kernels' launch
 counts set to 0 just before it and read just after:
 
   1. the query path (phase `search`): UHNSW.build(method="bulk_host", m = 16,
@@ -34,18 +34,38 @@ counts set to 0 just before it and read just after:
      (gather_lp_screen), which must return the independent ids;
   6. the delta tier (phase `delta`): 512 fresh rows added to the sharded
      index, each searched for with abandon on and off (gather_lp_abandon,
-     pairwise_lp on the delta scan), then compacted into a fifth segment.
+     pairwise_lp on the delta scan), then compacted into a fifth segment;
+  7. durability (phase `durable`): the sharded index wrapped in a
+     DurableIndex, 1,536 fresh rows through add() (one compaction and
+     snapshot rotation: pairwise_lp, gather_lp), searches, recover() into a
+     fresh index that must be bitwise equal, a recovery from a log whose
+     newest record was cut short, and a poisoned segment restored from the
+     snapshot;
+  8. serving (phase `serve`): 2,048 mixed-p requests through
+     UniversalVectorService.serve (the engine) over the recovered index
+     (gather_lp, gather_lp_abandon, and pairwise_lp on the delta scan),
+     equal to serve_grouped; again under injected faults, and again with
+     per-segment faults and a poisoned segment that is quarantined,
+     restored and re-admitted;
+  9. the command line (phase `serve_cli`): `repro_torch.launch.serve`
+     with --retrieval --n 200000 --state-dir, twice (build, then recover),
+     each serving every request with no fault caught; a sample of the
+     first run's kernel calls (d = 256) is held against the plain
+     versions.
 
-It builds the CUDA kernels with nvcc first, holds each kernel against its
-plain PyTorch version on the card at the paths' shapes and at shapes the
-paths' defaults do not reach (pairwise_lp at ragged shapes, with its level
+It builds the CUDA kernels with nvcc (on a second thread, while the
+data, the brute-force truth and the host builder's graphs are made),
+holds each kernel against its plain PyTorch version on the card at the
+paths' shapes and at shapes the paths' defaults do not reach (pairwise_lp at ragged shapes, with its level
 calls exactly symmetric; gather_lp_multi on the build's own round-2 block
 and on random ids, with gather_lp's bits, and at d = 37, general p and
 small slabs; gather_lp_abandon at block_d 8 and 16, C = 1 and 37, on
 strided id slices; gather_lp_screen at block_d 8 and 16, C = 1 and 37,
 on strided id and base-sum slices, at d = 37, with frozen and +inf
 rows, padding ids and NaN query coordinates; lp_topk at k = 65 and k =
-C, with NaN and +inf rows, and at d = 37 and 1,100), times each kernel
+C, with NaN and +inf rows, and at d = 37 and 1,100; gather_lp_abandon,
+gather_lp_screen and pairwise_lp on NaN rows and NaN base sums, phase
+`nan_cases`), times each kernel
 around its wrapper (`ms`) and on the device alone (`device_ms`, calls
 captured in a CUDA graph), measures recall
 against a brute-force top-k and checks it against the same search with the
@@ -63,9 +83,11 @@ Without a CUDA device it exits with code 2 before doing anything.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -306,11 +328,11 @@ def compare_abandon(Q, batch, X, thresh, sb, p, base, bd, label):
                     "survivors": int(got.isfinite().sum())}
 
 
-def phase_build():
-    from repro_torch.kernels import _build
-
-    t0 = time.perf_counter()
-    libs = _build.build_all()
+def phase_build(libs, t0: float):
+    """Waits for the kernels' build (`_build.build_all`, started at t0 on
+    another thread while the data, the truth and the host builder's
+    graphs, which launch no kernel, are made) and reports it."""
+    libs = libs.result()
     report = {name: [ln.strip() for ln in rep.splitlines()
                      if "Used" in ln or "spill" in ln] if rep != "cached" else "cached"
               for name, (_, rep) in libs.items()}
@@ -366,8 +388,9 @@ def graph_stats(index, Q, truth) -> dict:
     return out
 
 
-def phase_index(X, Q, truth):
-    """The host bulk builder (slice 1's path)."""
+def phase_index(X, Q, truth, built):
+    """The host bulk builder (slice 1's path); `built()` returns once the
+    kernels are built, before the first search."""
     import torch
 
     from repro_torch.core.uhnsw import UHNSW
@@ -377,6 +400,7 @@ def phase_index(X, Q, truth):
     index = UHNSW.build(X, m=M, seed=0, method="bulk_host")
     seconds = _now() - t0
     peak = torch.cuda.max_memory_allocated() / 2**20
+    built()
     stats = graph_stats(index, Q, truth)
     emit({"phase": "index", "method": "bulk_host", "seconds": seconds, **stats,
           "peak_device_mib": peak})
@@ -1593,10 +1617,567 @@ def phase_delta(idx):
     return delta_launches
 
 
-def kernels_line(kernel_rows, bulk_rows, rest_rows, launches, worst) -> list:
+NAN_CASES = ((1.0, 1.25), (1.0, "mixed"), (2.0, "mixed"))
+DURABLE_ROWS = 1536      # inserts through DurableIndex.add: one compaction at DELTA_CAPACITY
+SERVE_REQUESTS = 2048
+SERVE_P = (0.5, 0.8, 1.0, 1.3, 1.7, 2.0)   # src/repro/launch/serve.py's draw
+SERVE_BATCH = 256
+POISON_SEGMENT = 1
+CLI_N = 200_000          # the `deep` generator at its published width (d = 256)
+CLI_REQUESTS = 1024
+CLI_SEGMENTS = 4
+# recall@10 floor of the serve phase at each p: its reading on the H100
+# (0.823, 0.983, 1.0, 0.962, 0.973, 0.991) less about 0.03 to 0.05
+SERVE_RECALL_FLOOR = {0.5: 0.78, 0.8: 0.95, 1.0: 0.97, 1.3: 0.93, 1.7: 0.94, 2.0: 0.96}
+SAMPLE_EVERY = 4         # sampled_kernels checks calls 0, 4, 8, ... of each kernel,
+SAMPLE_MAX = 10          # at most this many of each,
+SAMPLE_ROWS = 64         # on this many leading rows (pairwise_lp: SAMPLE_ROWS // 4)
+
+
+def check_launched(counts: dict, names, label: str) -> None:
+    check(all(counts[n] > 0 for n in names), f"{label}: kernels not launched: {counts}")
+
+
+def nan_abandon(Q, ids, X, thresh, sb, p, base, bd, label, nan_slots) -> dict:
+    """gather_lp_abandon against its plain version where NaN base sums or
+    NaN rows are in play. On `nan_slots` (a NaN base sum or a NaN row) nd,
+    +inf and NaN must agree slot for slot, and a NaN base sum must die at
+    entry (nd 0, +inf). On the other slots, compare_abandon's rule: nd
+    agrees on at least 99% (a partial sum may tie with the threshold), and
+    where it does, +inf and NaN agree and finite distances within RTOL."""
+    from repro_torch.kernels import lp_distance as kd
+    from repro_torch.kernels import ref
+
+    got, nd = kd.gather_lp_abandon(Q, ids, X, thresh, sb, p, base, bd)
+    want, nd_ref = ref.gather_lp_abandon_ref(Q, ids, X, thresh, sb, p, base, bd)
+    _sync()
+    same = nd == nd_ref
+    pattern = (got.isinf() == want.isinf()) & (got.isnan() == want.isnan())
+    bad_nan = int((nan_slots & ~(same & pattern)).sum())
+    agree = float(same[~nan_slots].float().mean())
+    fin = same & got.isfinite() & want.isfinite()
+    r, a, _ = rel_err(got[fin], want[fin]) if bool(fin.any()) else (0.0, 0.0, 0)
+    check(bad_nan == 0, f"gather_lp_abandon NaN case {label}: {bad_nan} NaN slots differ")
+    check(agree >= 0.99 and bool(pattern[same].all()) and r <= RTOL,
+          f"gather_lp_abandon NaN case {label}: nd agreement {agree}, rel {r}")
+    nan_sb = sb.isnan()
+    check(bool((nd[nan_sb] == 0).all() & got[nan_sb].isinf().all()),
+          f"gather_lp_abandon NaN case {label}: a NaN base sum was not killed at entry")
+    return {"nan_slots": int(nan_slots.sum()), "nan_base_sums": int(nan_sb.sum()),
+            "killed_at_entry": int((nd == 0).sum()), "nan_dists": int(got.isnan().sum()),
+            "survivors": int(got.isfinite().sum()), "nd_agreement_other_slots": agree,
+            "max_rel_err": r, "max_abs_err": a}
+
+
+def phase_nan(index, Q):
+    """The kernels' NaN cases. A NaN corpus row is what
+    `engine.faults.poison_segment` writes; its base sum is NaN, and the
+    plain versions (and the reference) kill such a candidate at entry.
+    gather_lp_abandon and gather_lp_screen get, at each case of NAN_CASES
+    (base metric, p): NaN corpus rows with their NaN base sums, NaN base
+    sums planted on clean rows, and (abandon) NaN rows with the bound off
+    (base sums 0, as the delta scan passes them), each at thresholds that
+    kill only at entry and at the path's (each row's 5th-best exact
+    distance of the first 10 candidates). pairwise_lp gets a NaN corpus
+    row and a NaN query row at p = 2 (the product identity) and mixed p.
+    Each must equal its plain version slot for slot. Not counted: these
+    are comparisons, not a path."""
+    import torch
+
+    from repro_torch.kernels import lp_distance as kd
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import pick_abandon_block_d
+
+    t0 = _now()
+    X, dev = index.X, index.X.device
+    b = Q.shape[0]
+    bd = pick_abandon_block_d(X.shape[1])
+    band = index.compressed_band()
+    Qp = Q[:, band.perm].contiguous()
+    loose = torch.full((b,), 3e38, device=dev)
+    report = {"abandon": {}, "screen": {}, "pairwise": {}}
+    for base, p in NAN_CASES:
+        pv = torch.from_numpy(mixed_p(b)).to(dev) if p == "mixed" else p
+        ids = index.search_stage_candidates(Q, base, K).ids[:, :10].contiguous()
+        bad = torch.unique(ids[: b // 4, ::3].reshape(-1)).long()
+        bad = bad[bad >= 0]
+        Xn = X.clone()
+        Xn[bad] = torch.nan
+        row_nan = torch.isin(ids.long(), bad)
+        sb_rows = ref.gather_lp_ref(Q, ids, Xn, base)
+        sb_clean = ref.gather_lp_ref(Q, ids, X, base)
+        sb_planted = sb_clean.clone()
+        sb_planted[::7, 2] = torch.nan
+        sb_planted[1::5, 7] = torch.nan
+        path = torch.sort(ref.gather_lp_ref(Q, ids, X, pv), dim=1).values[:, 4].contiguous()
+        label = f"base={base} p={p}"
+        for tname, thr in (("entry", loose), ("path", path)):
+            for cname, xs, sb in (("nan_rows", Xn, sb_rows), ("nan_base_sums", X, sb_planted),
+                                  ("nan_rows_no_bound", Xn, torch.zeros_like(sb_rows))):
+                report["abandon"][f"{label} {cname} {tname}"] = nan_abandon(
+                    Q, ids, xs, thr, sb, pv, base, bd, f"{label} {cname} {tname}",
+                    sb.isnan() | (row_nan if xs is Xn else torch.zeros_like(row_nan)))
+            for cname, sb in (("nan_rows", sb_rows), ("nan_base_sums", sb_planted)):
+                _, row = screen_case(Qp, ids, band, thr, sb, pv, base, bd,
+                                     f"NaN {label} {cname} {tname}")
+                check(row["survivors"] <= int((~sb.isnan()).sum()),
+                      f"gather_lp_screen NaN {label} {cname} {tname}: a NaN base sum survived")
+                report["screen"][f"{label} {cname} {tname}"] = {
+                    "nan_base_sums": int(sb.isnan().sum()), **row}
+    q = Q[:64].clone()
+    q[5] = torch.nan
+    x = X[:1024].clone()
+    x[17] = torch.nan
+    ok_r = torch.ones(q.shape[0], dtype=torch.bool, device=dev)
+    ok_r[5] = False
+    ok_c = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+    ok_c[17] = False
+    for label, p in (("2.0", 2.0), ("mixed", torch.from_numpy(mixed_p(q.shape[0])).to(dev))):
+        got, want = kd.pairwise_lp(q, x, p), ref.pairwise_lp_ref(q, x, p)
+        _sync()
+        nan_diff = int((got.isnan() != want.isnan()).sum())
+        check(nan_diff == 0 and bool(got[5].isnan().all() & got[:, 17].isnan().all()),
+              f"pairwise_lp NaN case p={label}: NaN differs on {nan_diff} entries")
+        pr = p if isinstance(p, float) else p[ok_r]
+        errs = check_pairwise(f"NaN case p={label}", pairwise_errors(
+            got[ok_r][:, ok_c], want[ok_r][:, ok_c], q[ok_r], x[ok_c], pr))
+        report["pairwise"][label] = {"nan_entries": int(got.isnan().sum()), **errs}
+    emit({"phase": "nan_cases", "seconds": _now() - t0, "cases": sum(
+        len(v) for v in report.values()), **report})
+
+
+def same_results(a: dict, b: dict, label: str) -> None:
+    """Two run_searches results: ids, dists, N_b and N_p bitwise equal."""
+    import torch
+
+    for p in a:
+        (ia, da, sa), (ib, db, sb_) = a[p][:3], b[p][:3]
+        check(torch.equal(ia, ib) and torch.equal(da, db) and torch.equal(sa.n_b, sb_.n_b)
+              and torch.equal(sa.n_p, sb_.n_p), f"{label}: results differ at p={p}")
+
+
+def phase_durable(idx, Q):
+    """The durability layer on the sharded index as the delta phase left
+    it: DurableIndex.create in a temporary directory, DURABLE_ROWS fresh
+    rows of the generator's mixture through add() (fsync per record; one
+    compaction at DELTA_CAPACITY, whose rotation writes a second
+    snapshot), searches at SHARDED_P and the mixed batch, then recover()
+    into a fresh index, which must give ids, dists, N_b and N_p bitwise
+    equal to the live index's. A copy of the directory with the newest WAL
+    record cut short must recover to the adds before it. Then
+    poison_segment(POISON_SEGMENT) on the live index (no poisoned id
+    returned, the guard raised) and restore_segment from the snapshot:
+    the ids equal the clean ones again. Returns the recovered index,
+    re-armed as a DurableIndex (its own snapshot and WAL), and the
+    directory."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+
+    from repro_torch.core.datasets import make_dataset
+    from repro_torch.index.persist import DurableIndex, recover, restore_segment
+    from repro_torch.index.wal import list_wals
+    from repro_torch.retrieval.engine.faults import poison_segment
+
+    t0 = _now()
+    state = Path(tempfile.mkdtemp(prefix="uhnsw_state_"))
+    fresh = make_dataset("sun", n=N_SUN, n_queries=DURABLE_ROWS, seed=1).queries
+    segs0, n0 = idx.num_segments, idx.n
+    t1 = _now()
+    dur = DurableIndex.create(idx, state)
+    create_s = _now() - t1
+    snap_bytes = (state / "snapshot_00000000" / "arrays.npz").stat().st_size
+    add_s = []
+
+    def adds():
+        for v in fresh:
+            t = time.perf_counter()
+            dur.add(v)
+            add_s.append(time.perf_counter() - t)
+
+    _, add_launches = counted(adds)
+    check(idx.num_segments == segs0 + 1 and idx.n == n0 + DURABLE_ROWS
+          and len(idx.delta) == (len(fresh) + n0 - idx.X.shape[0]),
+          f"durable adds: {idx.num_segments} segments, n {idx.n}")
+    # the compaction's shared pass: at 1,024 rows it takes the exact seed,
+    # so no multi-p gather
+    check_launched(add_launches, ("pairwise_lp", "gather_lp"), "durable adds' compaction")
+    live, search_launches = counted(run_searches, idx, Q, SHARDED_P)
+    dur.close()
+    wal_bytes = {p.name: p.stat().st_size for _, p in list_wals(state)}
+    # a crash mid-append: the newest record cut 7 bytes short
+    torn = Path(tempfile.mkdtemp(prefix="uhnsw_torn_"))
+    shutil.rmtree(torn)
+    shutil.copytree(state, torn)
+    newest = list_wals(torn)[-1][1]
+    newest.write_bytes(newest.read_bytes()[:-7])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        cut = recover(torn, device=idx.X.device)
+    check(cut.n == idx.n - 1 and len(cut.delta) == len(idx.delta) - 1
+          and any("torn" in str(w.message) for w in caught),
+          f"torn WAL: recovered n {cut.n}, live n {idx.n}")
+    check(torch.equal(torch.from_numpy(cut.delta.vectors()),
+                      torch.from_numpy(idx.delta.vectors()[:-1])), "torn WAL: delta rows")
+    del cut
+    shutil.rmtree(torn)
+    t2 = _now()
+    rec = recover(state, device=idx.X.device)
+    recover_s = _now() - t2
+    got, rec_launches = counted(run_searches, rec, Q, SHARDED_P)
+    same_results(live, got, "recovered index")
+    t3 = _now()
+    rdur = DurableIndex.create(rec, state)
+    save_s = _now() - t3
+    # poison, then restore from the snapshot
+    gids = torch.from_numpy(poison_segment(idx, POISON_SEGMENT)).to(idx.X.device)
+    ids_p, _, st_p = idx.search(Q, 1.25, K)
+    check(not bool(torch.isin(ids_p.long(), gids).any()), "a poisoned id was returned")
+    check(bool(torch.as_tensor(st_p.poisoned).any()), "the poison guard did not trip")
+    check(restore_segment(idx, POISON_SEGMENT, state), "restore_segment found no snapshot")
+    restored = run_searches(idx, Q, SHARDED_P)
+    same_results(live, restored, "restored segment")
+    emit({"phase": "durable", "seconds": _now() - t0, "state_dir_snapshot_bytes": snap_bytes,
+          "wal_bytes": wal_bytes, "create_save_seconds": create_s,
+          "adds": DURABLE_ROWS, "adds_seconds": sum(add_s),
+          "adds_per_second": DURABLE_ROWS / sum(add_s),
+          "add_seconds_median": float(np.median(add_s)),
+          "add_seconds_max_compaction": max(add_s), "add_launches": add_launches,
+          "recover_seconds": recover_s, "resave_seconds": save_s,
+          "segments": rec.num_segments, "n": rec.n, "delta_rows": len(rec.delta),
+          "recovered_bitwise_equal": True, "search_launches": search_launches,
+          "recovered_search_launches": rec_launches, "torn_tail_recovered_to": idx.n - 1,
+          "poisoned_rows": int(gids.numel()), "poisoned_query_rows": int(
+              torch.as_tensor(st_p.poisoned).sum()), "restored_equal": True})
+    return rdur, state
+
+
+def serve_requests(Qh):
+    """SERVE_REQUESTS requests drawn as src/repro/launch/serve.py draws
+    them: a query with replacement, then p from SERVE_P, k = 10."""
+    from repro_torch.retrieval.service import QueryRequest
+
+    rng = np.random.default_rng(0)
+    reqs, rows = [], []
+    for i in range(SERVE_REQUESTS):
+        row = int(rng.integers(len(Qh)))
+        reqs.append(QueryRequest(vector=Qh[row], p=float(rng.choice(SERVE_P)), k=K,
+                                 request_id=i))
+        rows.append(row)
+    return reqs, np.asarray(rows)
+
+
+def stage_timer(pipe) -> dict:
+    """Host seconds of every stage-A dispatch, stage-B dispatch and collect
+    of one engine's pipeline (no extra synchronisation: a stage that blocks
+    on the device on its own shows that in its own time), each with its
+    wave's shape (base, k, exact, size)."""
+    times = {"search": [], "finish": [], "collect": []}
+    for attr, key in (("dispatch_search", "search"), ("dispatch_finish", "finish"),
+                      ("collect", "collect")):
+        fn = getattr(pipe, attr)
+
+        def timed(wave, fn=fn, key=key):
+            t = time.perf_counter()
+            out = fn(wave)
+            times[key].append(((wave.base, wave.k, wave.exact, wave.size),
+                               time.perf_counter() - t))
+            return out
+
+        setattr(pipe, attr, timed)
+    return times
+
+
+def stage_summary(times: dict) -> dict:
+    """Per stage: calls, seconds in all and a call; and for the whole wave
+    (both stages and the collect), the first wave of each shape against
+    the later waves of a shape already seen."""
+    out = {k: {"calls": len(v), "sum": sum(t for _, t in v),
+               "mean": float(np.mean([t for _, t in v]))} for k, v in times.items()}
+    wave = [sum(ts) for ts in zip(*([t for _, t in times[k]]
+                                    for k in ("search", "finish", "collect")))]
+    seen, first, later = set(), [], []
+    for (shape, _), secs in zip(times["search"], wave):
+        (later if shape in seen else first).append(secs)
+        seen.add(shape)
+    out["wave_seconds"] = {"first_of_shape": {"waves": len(first), "mean": float(np.mean(first))},
+                           "later": {"waves": len(later),
+                                     "mean": float(np.mean(later)) if later else None}}
+    return out
+
+
+def served(svc, reqs, label: str):
+    """One serve of the stream, timed: (results, seconds, launches)."""
+    t = _now()
+    out, launched = counted(svc.serve, reqs)
+    return out, _now() - t, launched
+
+
+def equal_results(a: dict, b: dict, label: str) -> None:
+    check(set(a) == set(b), f"serve {label}: {len(a)} results against {len(b)}")
+    for rid, (ids, dists) in a.items():
+        check(np.array_equal(ids, b[rid][0]) and np.array_equal(dists, b[rid][1]),
+              f"serve {label}: request {rid} differs")
+
+
+def phase_serve(rdur, Q):
+    """The serving tier over the recovered durable index: a
+    UniversalVectorService (max_batch 256, the other defaults) serves
+    SERVE_REQUESTS requests through the engine. Recall@10 against brute
+    force for each p, held to SERVE_RECALL_FLOOR, qps, latency p50 / p95
+    with the queue-wait / compute split, waves, flush reasons, padded
+    rows, each kernel's launches, and each stage's host seconds against
+    the collect's. Then the same stream with
+    FaultInjector(rate=0.1, seed=0): the results equal the clean run's.
+    Then per-segment injection (sites "segment", rate 0.05), segment
+    POISON_SEGMENT NaN-poisoned and min_coverage 0.75: every request
+    served, none failed, no poisoned id returned and the segment
+    quarantined; the next pump restores it from the snapshot and the
+    canary probes re-admit it. Last, serve_grouped serves the stream on
+    the restored index: its ids and dists must equal the clean engine
+    run's bitwise (the engine equals serve_grouped, and the restored
+    index equals the clean one)."""
+    import torch
+
+    from repro_torch.core.hnsw import exact_topk
+    from repro_torch.index import HEALTHY, QUARANTINED
+    from repro_torch.retrieval.engine import FaultInjector
+    from repro_torch.retrieval.engine.faults import poison_segment
+    from repro_torch.retrieval.service import UniversalVectorService
+
+    t0 = _now()
+    dev = Q.device
+    Qh = Q.cpu().numpy()
+    reqs, rows = serve_requests(Qh)
+    svc = UniversalVectorService(index=rdur, max_batch=SERVE_BATCH)
+    stages = stage_timer(svc.engine.pipeline)
+    clean, secs, launched = served(svc, reqs, "clean")
+    check(len(clean) == SERVE_REQUESTS and not svc.engine.take_failures(), "serve: clean run")
+    check_launched(launched, ("gather_lp", "gather_lp_abandon"), "serve path")
+    st, lat = svc.stats, svc.latency_summary()
+    # recall@10 of each p against a brute-force top-10 over every row
+    corpus = torch.cat([rdur.X, torch.from_numpy(rdur.delta.vectors()).to(dev)])
+    gid_of = torch.cat([torch.arange(rdur.X.shape[0], device=dev),
+                        torch.from_numpy(rdur.delta.ids().astype(np.int64)).to(dev)])
+    recall_p = {}
+    for p in SERVE_P:
+        truth = gid_of[exact_topk(corpus, Q, p, K)[0].long()].cpu().numpy()
+        sel = [r for r in reqs if r.p == p]
+        hits = sum(len(set(clean[r.request_id][0].tolist()) & set(truth[rows[r.request_id]]))
+                   for r in sel)
+        recall_p[str(p)] = hits / (K * max(len(sel), 1))
+        check(recall_p[str(p)] >= SERVE_RECALL_FLOOR[p],
+              f"serve: recall@10 {recall_p[str(p)]} at p={p}, below {SERVE_RECALL_FLOOR[p]}")
+    # transient faults at every classic site
+    inj = FaultInjector(rate=0.1, seed=0)
+    svc_f = UniversalVectorService(index=rdur, max_batch=SERVE_BATCH, fault_injector=inj)
+    faulted, faulted_s, _ = served(svc_f, reqs, "faulted")
+    check(not svc_f.engine.take_failures(), "faulted serve: a request failed")
+    equal_results(faulted, clean, "faulted vs clean")
+    check(svc_f.stats["faults"] == inj.injected > 0, "faulted serve: fault accounting")
+    # per-segment faults, a poisoned segment and a coverage floor
+    inj_s = FaultInjector(rate=0.05, seed=0, sites=("segment",))
+    svc_p = UniversalVectorService(index=rdur, max_batch=SERVE_BATCH, fault_injector=inj_s,
+                                   min_coverage=0.75)
+    gids = set(poison_segment(rdur, POISON_SEGMENT).tolist())
+    poisoned, poisoned_s, _ = served(svc_p, reqs, "poisoned")
+    failures = svc_p.engine.take_failures()
+    leaked = sum(len(gids & set(ids.tolist())) for ids, _ in poisoned.values())
+    check(leaked == 0, f"poisoned serve: {leaked} poisoned ids returned")
+    check(rdur.health.state(POISON_SEGMENT) == QUARANTINED
+          and svc_p.stats["poison_detected"] > 0, "poisoned serve: segment not quarantined")
+    check(not failures and len(poisoned) == SERVE_REQUESTS,
+          f"poisoned serve: {len(poisoned)} served, {len(failures)} failed")
+    st_p = dict(svc_p.stats)
+    svc_p.engine.pump()                     # the maintenance slot: restore + canaries
+    check(rdur.health.state(POISON_SEGMENT) == HEALTHY
+          and rdur.health.alive() == list(range(rdur.num_segments))
+          and svc_p.stats["seg_recovered"] >= 1, "poisoned segment not restored and re-admitted")
+    # serve_grouped on the restored index: equal to the clean engine run
+    # both because the engine equals serve_grouped and because the
+    # restored segment serves its old rows again
+    t_g = _now()
+    grouped = svc.serve_grouped(reqs)
+    grouped_s = _now() - t_g
+    equal_results(clean, grouped, "engine vs serve_grouped after recovery")
+    fl = st["flushes"]
+    emit({"phase": "serve", "seconds": _now() - t0, "requests": SERVE_REQUESTS,
+          "serve_seconds": secs, "qps": SERVE_REQUESTS / secs, "waves": st["batches"],
+          "flushes": fl, "padded_rows": st["padded_rows"], "queue_peak": st["queue_peak"],
+          "latency_ms": {k: lat[k] for k in ("p50", "p95", "mean", "max")},
+          "queue_ms": lat["queue_ms"], "compute_ms": lat["compute_ms"],
+          "cold_requests": lat["cold_count"], "warm_latency_ms": lat["warm"],
+          "stage_seconds": stage_summary(stages),
+          "launches": launched, "recall@10": recall_p,
+          "per_base": {k: {"queries": v["queries"], "batches": v["batches"]}
+                       for k, v in st["per_base"].items()},
+          "grouped_seconds": grouped_s, "ids_equal_serve_grouped": True,
+          "faulted": {"seconds": faulted_s, "faults": svc_f.stats["faults"],
+                      "retries": svc_f.stats["retries"],
+                      "quarantine_splits": svc_f.stats["quarantine_splits"],
+                      "equal_clean": True},
+          "poisoned": {"seconds": poisoned_s, "served": len(poisoned), "failed": len(failures),
+                       "poison_detected": st_p["poison_detected"],
+                       "seg_quarantined": st_p["seg_quarantined"],
+                       "segment_faults": inj_s.injected, "retries": st_p["retries"],
+                       "coverage_mean": st_p["coverage_w"] / max(st_p["queries"], 1),
+                       "poisoned_ids_returned": 0, "seg_recovered": svc_p.stats["seg_recovered"],
+                       "final_equal_clean": True}})
+    return launched
+
+
+@contextmanager
+def sampled_kernels():
+    """Holds a sample of the calls a path makes against the plain versions,
+    on the same inputs, while the path runs: calls 0, SAMPLE_EVERY, ... of
+    gather_lp, gather_lp_multi, gather_lp_abandon and pairwise_lp (at most
+    SAMPLE_MAX of each), on their first SAMPLE_ROWS rows (every kernel
+    scores each row on its own). The rules are those of the kernel phases:
+    gather_lp and gather_lp_multi within RTOL with +inf in the same
+    places; gather_lp_abandon's nd equal on at least 99% of the slots and,
+    where it is, distances within RTOL; pairwise_lp as check_pairwise.
+    Yields {kernel: [one summary per checked call]}. The plain versions
+    launch no kernel, so the path's counts stay its own."""
+    import inspect
+
+    import torch
+
+    from repro_torch.kernels import lp_distance, ref
+
+    def rows(t, r):
+        return t[:r] if isinstance(t, torch.Tensor) and t.dim() > 0 else t
+
+    def graded(name, a, pairs) -> dict:
+        rel, err = 0.0, 0.0
+        for got, want in pairs:
+            r, e, mis = rel_err(got, want)
+            check(mis == 0 and r <= RTOL,
+                  f"{name} sampled call {list(a['ids'].shape)}: rel {r} mismatch {mis}")
+            rel, err = max(rel, r), max(err, e)
+        return {"max_rel_err": rel, "max_abs_err": err}
+
+    def gather(a, out, r):
+        return graded("gather_lp", a, [(out[:r], ref.gather_lp_ref(
+            a["q"][:r], a["ids"][:r], a["x"], rows(a["p"], r)))])
+
+    def multi(a, out, r):
+        return graded("gather_lp_multi", a, [(out[i, :r], ref.gather_lp_ref(
+            a["q"][:r], a["ids"][:r], a["x"], pv)) for i, pv in enumerate(a["ps"])])
+
+    def abandon(a, out, r):
+        got, nd = out[0][:r], out[1][:r]
+        want, nd_ref = ref.gather_lp_abandon_ref(
+            a["q"][:r], a["ids"][:r], a["x"], a["thresh"][:r], a["sb"][:r], rows(a["p"], r),
+            a["base_p"], a["block_d"])
+        same = nd == nd_ref
+        agree = float(same.float().mean())
+        rel, err, mis = rel_err(torch.where(same, got, 0.0), torch.where(same, want, 0.0))
+        check(agree >= 0.99 and mis == 0 and rel <= RTOL,
+              f"gather_lp_abandon sampled call {list(a['ids'].shape)}: nd agreement {agree}, "
+              f"rel {rel}, mismatch {mis}")
+        return {"nd_agreement": agree, "max_rel_err": rel, "max_abs_err": err}
+
+    def pairwise(a, out, r):
+        r //= 4
+        q, p = a["q"][:r], rows(a["p"], r)
+        return check_pairwise(f"sampled call {[a['q'].shape[0], *a['x'].shape]}",
+                              pairwise_errors(out[:r], ref.pairwise_lp_ref(q, a["x"], p),
+                                              q, a["x"], p))
+
+    graders = {"gather_lp": gather, "gather_lp_multi": multi, "gather_lp_abandon": abandon,
+               "pairwise_lp": pairwise}
+    report = {name: [] for name in graders}
+    saved = {}
+
+    def shim(name, inner):
+        sig = inspect.signature(inner)
+        seen = [0]
+
+        def call(*args, **kwargs):
+            out = inner(*args, **kwargs)
+            i = seen[0]
+            seen[0] += 1
+            if i % SAMPLE_EVERY == 0 and i // SAMPLE_EVERY < SAMPLE_MAX:
+                a = sig.bind(*args, **kwargs).arguments
+                shape = list(a["ids"].shape) if "ids" in a else [a["q"].shape[0],
+                                                                 a["x"].shape[0]]
+                report[name].append({"call": i, "shape": shape, "d": int(a["x"].shape[1]),
+                                     **graders[name](a, out, SAMPLE_ROWS)})
+            return out
+
+        call.launches = inner.launches
+        return call
+
+    for name in graders:
+        saved[name] = getattr(lp_distance, name)
+        setattr(lp_distance, name, shim(name, saved[name]))
+    try:
+        yield report
+    finally:
+        for name, fn in saved.items():
+            fn.launches = getattr(lp_distance, name).launches
+            setattr(lp_distance, name, fn)
+
+
+def phase_serve_cli():
+    """The command line, `repro_torch.launch.serve.main(["--retrieval",
+    "--n", CLI_N, "--requests", CLI_REQUESTS, "--state-dir", D])`, twice:
+    the first run builds the `deep` index and snapshots it, the second
+    recovers it. Both must return 0, report the same n, and serve every
+    request (`served CLI_REQUESTS mixed-p requests`) with no fault caught
+    and no request failed. The first run holds a sample of its kernel calls
+    at d = 256 (the build's and the serving waves') against the plain
+    versions (`sampled_kernels`); the second runs unobserved."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import serve
+
+    t0 = _now()
+    state = Path(tempfile.mkdtemp(prefix="uhnsw_cli_")) / "state"
+    runs = []
+    for i in range(2):
+        buf = io.StringIO()
+        t = _now()
+        with contextlib.redirect_stdout(buf), (
+                sampled_kernels() if i == 0 else contextlib.nullcontext({})) as samples:
+            rc, launched = counted(serve.main, [
+                "--retrieval", "--n", str(CLI_N), "--requests", str(CLI_REQUESTS),
+                "--segments", str(CLI_SEGMENTS), "--state-dir", str(state)])
+        lines = buf.getvalue().splitlines()
+        n = re.search(r"n=(\d+)", lines[0])
+        done = [re.match(r"served (\d+) mixed-p requests", ln) for ln in lines]
+        done = [int(m.group(1)) for m in done if m]
+        runs.append({"rc": rc, "seconds": _now() - t, "n": int(n.group(1)) if n else None,
+                     "served": done, "lines": lines, "launches": launched,
+                     "sampled_calls": samples})
+        check(done == [CLI_REQUESTS], f"serve_cli run {i}: served {done} of {CLI_REQUESTS}")
+        check(not any("faults:" in ln or "FAILED" in ln for ln in lines),
+              f"serve_cli run {i}: a fault was caught or a request failed")
+    check(all(r["rc"] == 0 for r in runs), f"serve_cli: exit codes {[r['rc'] for r in runs]}")
+    check(runs[0]["lines"][0].startswith("created durable index")
+          and runs[1]["lines"][0].startswith("recovered durable index"),
+          "serve_cli: the runs did not create, then recover")
+    check(runs[0]["n"] == runs[1]["n"] == CLI_N, f"serve_cli: n {[r['n'] for r in runs]}")
+    sampled = ("gather_lp", "gather_lp_abandon", "pairwise_lp", "gather_lp_multi")
+    check_launched(runs[0]["launches"], sampled, "serve_cli's first run")
+    check(all(runs[0]["sampled_calls"][name] for name in sampled),
+          "serve_cli: a kernel with no call held against its plain version")
+    check_launched(runs[1]["launches"], ("gather_lp", "gather_lp_abandon"), "serve_cli")
+    shutil.rmtree(state.parent)
+    emit({"phase": "serve_cli", "seconds": _now() - t0, "runs": runs})
+
+
+def kernels_line(kernel_rows, bulk_rows, rest_rows, launches, worst, serve_counts) -> list:
     """The summary line's entries, one per kernel: the timed row of its
-    path's case, its launches on its path's counted run, and its largest
-    error against its plain version over every case."""
+    path's case, its launches on its path's counted run (and on the serve
+    phase's clean run, `serve_launches`), and its largest error against
+    its plain version over every case."""
     mix_row = kernel_rows[-1]
     rows = {"gather_lp": mix_row["gather_lp"], "gather_lp_abandon": mix_row["gather_lp_abandon"],
             "pairwise_lp": bulk_rows["pairwise_lp"][0],
@@ -1617,6 +2198,7 @@ def kernels_line(kernel_rows, bulk_rows, rest_rows, launches, worst) -> list:
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                         "replaces": replaces, "launches": launches[name],
+                        "serve_launches": serve_counts[name],
                         "max_abs_err": worst[name], "ms": r["ms"], "device_ms": r["device_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
@@ -1652,10 +2234,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
-    phase_build()
-    X, Q = phase_data(dev)
-    truth = phase_truth(X, Q)
-    host_index, host = phase_index(X, Q, truth)
+    from repro_torch.kernels import _build
+
+    with ThreadPoolExecutor(1) as pool:
+        libs = pool.submit(_build.build_all)
+        X, Q = phase_data(dev)
+        truth = phase_truth(X, Q)
+        host_index, host = phase_index(X, Q, truth, lambda: phase_build(libs, t_start))
     bulk_index, build_counts, build_rec = phase_index_bulk(X, Q, truth, host)
     del X
     kernel_rows, worst = phase_kernels(host_index, Q)
@@ -1667,8 +2252,16 @@ def main() -> int:
     phase_mixed(bulk_results, "mixed_bulk")
     band_counts = phase_band(bulk_index, Q, bulk_results)
     rest_rows, worst_rest, rest_counts = phase_kernels_rest(bulk_index, Q)
+    phase_nan(bulk_index, Q)
     sharded_index, _ = phase_sharded(bulk_index.X, Q, truth, bulk_results)
     phase_delta(sharded_index)
+    rdur, state = phase_durable(sharded_index, Q)
+    del sharded_index, host_index
+    serve_counts = phase_serve(rdur, Q)
+    rdur.close()
+    del rdur
+    shutil.rmtree(state)
+    phase_serve_cli()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1681,7 +2274,7 @@ def main() -> int:
                             "gather_lp_screen": band_counts["gather_lp_screen"],
                             "rowwise_lp": rest_counts["rowwise_lp"],
                             "lp_topk": rest_counts["lp_topk"]},
-                           {**worst, **worst_bulk, **worst_rest})
+                           {**worst, **worst_bulk, **worst_rest}, serve_counts)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -14,13 +14,22 @@ The port of `repro` (JAX + Pallas for the TPU), mirroring its layout:
                          batched search; independent / two_phase /
                          round_robin), delta (the insert buffer and its
                          compaction), health (segment health and degraded
-                         search), compressed (the int8 band)
+                         search), compressed (the int8 band), wal (the
+                         insert log) and persist (snapshots, recovery,
+                         DurableIndex, restore_segment), in the
+                         reference's on-disk format
   repro_torch.kernels  — seven CUDA kernel wrappers (pairwise_lp,
                          rowwise_lp, gather_lp, gather_lp_multi,
                          gather_lp_abandon, gather_lp_screen in
                          lp_distance; lp_topk in lp_topk), their plain
                          PyTorch versions (ref), the dispatchers (ops) and
                          the nvcc build that loads them (_build)
+  repro_torch.retrieval — service (UniversalVectorService: the mixed-p
+                         micro-batcher, serve_grouped, serve_v1) and engine
+                         (ServingEngine: deadline-flushed buckets, ladder
+                         waves, the two-stage pipeline, fault injection,
+                         poisoned-segment quarantine and recovery)
+  repro_torch.launch   — serve: the retrieval tier's command line
   repro_torch.convert  — carries a reference index into the port
 
 Entry points run on "cuda" unless the caller passes device="cpu"; on CPU

@@ -62,6 +62,16 @@ class DeltaBuffer:
     def ids(self) -> np.ndarray:
         return np.asarray(self._ids, dtype=np.int32)
 
+    def restore(self, vecs: np.ndarray, ids: np.ndarray) -> None:
+        """Bulk re-load buffered contents (snapshot recovery path): appends
+        in order with the saved global ids, so a restored buffer is the one
+        that reached this state through `add`."""
+        vecs = np.asarray(vecs, dtype=np.float32)
+        if len(vecs) != len(ids):
+            raise ValueError(f"{len(vecs)} vectors but {len(ids)} ids")
+        for v, gid in zip(vecs, ids):
+            self.add(v, int(gid))
+
     def drain(self) -> tuple[np.ndarray, np.ndarray]:
         """Return (vectors, ids) and empty the buffer (compaction step)."""
         vecs, ids = self.vectors(), self.ids()

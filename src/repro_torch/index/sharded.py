@@ -241,6 +241,10 @@ class ShardedUHNSW:
         # compaction: the int8 band and the energy-ordered view
         self._band = None
         self._scan_cache = None
+        # durability hook (`index.persist.DurableIndex`): called after a
+        # compaction is in place, when the delta is empty; None = no
+        # durability layer
+        self.on_compact = None
 
     @classmethod
     def build(cls, data, num_segments: int = 4, m: int = 16,
@@ -632,3 +636,5 @@ class ShardedUHNSW:
         self._phase_cache.clear()
         self._band = None
         self._scan_cache = None
+        if self.on_compact is not None:
+            self.on_compact()

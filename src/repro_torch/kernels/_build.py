@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -56,13 +57,22 @@ def _digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
-@functools.lru_cache(maxsize=None)
+_BUILD_LOCK = threading.Lock()
+
+
 def build_all() -> dict[str, tuple[ctypes.CDLL, str]]:
     """Builds (where needed) and loads every kernel library.
 
     Returns {name: (library, nvcc's ptxas report or "cached")}. Raises
-    RuntimeError with nvcc's output if a build fails.
+    RuntimeError with nvcc's output if a build fails. Safe to call from
+    several threads: one builds, the others wait for its libraries.
     """
+    with _BUILD_LOCK:
+        return _build_all()
+
+
+@functools.lru_cache(maxsize=None)
+def _build_all() -> dict[str, tuple[ctypes.CDLL, str]]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in LAUNCHERS:

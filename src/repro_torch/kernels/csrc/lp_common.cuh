@@ -34,15 +34,18 @@ __device__ __forceinline__ float pow_from_abs(float a, float p) {
   return a == 0.0f ? 0.0f : expf(p * logf(a < kEps ? kEps : a));
 }
 
-// x^e for x >= 0 via exp(e * log x), x <= 0 -> 0 (lp_ops._safe_pow).
+// x^e for x >= 0 via exp(e * log x), x <= 0 -> 0 (lp_ops._safe_pow). The guard is a
+// select, as in pow_from_abs: fmaxf(NaN, kEps) would turn a NaN into kEps.
 __device__ __forceinline__ float safe_pow(float x, float e) {
-  return x <= 0.0f ? 0.0f : expf(e * logf(fmaxf(x, kEps)));
+  return x <= 0.0f ? 0.0f : expf(e * logf(x < kEps ? kEps : x));
 }
 
 // lp_ops.lp_entry_bound for one candidate from its base power sum sb over d dims
-// (base_l1: sb holds an L1 sum, else a squared L2 sum); also the suffix bound.
+// (base_l1: sb holds an L1 sum, else a squared L2 sum); also the suffix bound. A NaN sb
+// gives a NaN bound, as under clamp_min, so the candidate dies at entry (NaN <= thr is
+// false); hence the select in place of fmaxf, which would make the bound 0.
 __device__ __forceinline__ float entry_bound(float sb, bool base_l1, float p, float d) {
-  sb = fmaxf(sb, 0.0f);
+  sb = sb < 0.0f ? 0.0f : sb;
   float lb;
   if (base_l1) {
     lb = safe_pow(sb, p);

@@ -233,9 +233,11 @@ __device__ __forceinline__ void tile_loop(const float* __restrict__ q, const flo
     for (int c = 0; c < P; ++c) {
       const int col = col0 + tx + kSide * c;
       if (col >= N) continue;
-      const float v =
-          ident ? fmaxf((qq + norm_s[T + tx + kSide * c]) - 2.0f * acc[r][c], 0.0f)
-                : acc[r][c];
+      float v = acc[r][c];
+      if (ident) {   // the clamp at 0 is a select: fmaxf would score a NaN row 0
+        const float e = (qq + norm_s[T + tx + kSide * c]) - 2.0f * acc[r][c];
+        v = e < 0.0f ? 0.0f : e;
+      }
       out[static_cast<size_t>(row) * N + col] = v;
     }
   }

@@ -1,0 +1,206 @@
+"""Serving entry point: the universal-Lp retrieval tier.
+
+Counterpart of `repro.launch.serve`'s retrieval half:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --retrieval --requests 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --retrieval \
+      --n 200000 --requests 1024 --state-dir DIR
+
+It runs on the CUDA card unless given --device cpu. The reference's LM
+decode path (`serve_lm`) waits for the model scaffold's port; without
+--retrieval, `main` exits with an error that says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+
+def serve_retrieval(args) -> int:
+    """The retrieval tier: a sharded index over the `deep` generator
+    (durable under --state-dir), served through the engine; prints what
+    the reference's `serve_retrieval` prints."""
+    from repro_torch.core.datasets import make_dataset
+    from repro_torch.core.uhnsw import UHNSWParams
+    from repro_torch.index.persist import DurableIndex, latest_durable_snapshot
+    from repro_torch.index.sharded import ShardedUHNSW
+    from repro_torch.retrieval.engine import FaultInjector
+    from repro_torch.retrieval.service import QueryRequest, UniversalVectorService
+
+    # chaos rehearsal (DESIGN.md §9, §11): a seeded injector at the
+    # engine's device-call boundary; 0.0 leaves the happy path untouched.
+    # --fault-sites segment adds the per-segment sites (opt-in — the
+    # classic three-site schedules never shift), which exercises the
+    # health tracker's EWMA quarantine path under the coverage floor.
+    injector = None
+    if args.fault_rate > 0:
+        sites = tuple(args.fault_sites.split(",")) if args.fault_sites \
+            else None
+        injector = FaultInjector(rate=args.fault_rate, seed=args.fault_seed,
+                                 sites=sites)
+    ds = make_dataset("deep", n=args.n, n_queries=128, seed=args.seed)
+    # --compressed: two-band verification (DESIGN.md §10) — candidates are
+    # screened against the int8 band and only survivors gather f32 rows;
+    # results are bitwise-identical, f32-rows tells what the screen saved
+    params = UHNSWParams(t=200, compressed_band=args.compressed)
+    if args.state_dir:
+        # durable lifecycle: recover an existing state dir (snapshot + WAL
+        # replay, bit-identical) or snapshot a fresh build into it
+        if latest_durable_snapshot(args.state_dir) is not None:
+            index = DurableIndex.recover(args.state_dir, params=params,
+                                         device=args.device)
+            print(f"recovered durable index from {args.state_dir}: "
+                  f"n={index.n}, {index.num_segments} segments, "
+                  f"{len(index.delta)} delta-resident inserts")
+        else:
+            index = DurableIndex.create(
+                ShardedUHNSW.build(ds.data, num_segments=args.segments,
+                                   m=16, params=params, device=args.device),
+                args.state_dir)
+            print(f"created durable index at {args.state_dir}: n={index.n}")
+        service = UniversalVectorService(index=index,
+                                         fault_injector=injector,
+                                         min_coverage=args.min_coverage)
+    else:
+        service = UniversalVectorService.build(ds.data, params, m=16,
+                                               num_segments=args.segments,
+                                               device=args.device,
+                                               fault_injector=injector,
+                                               min_coverage=args.min_coverage)
+    rng = np.random.default_rng(args.seed)
+    reqs = [
+        QueryRequest(
+            vector=ds.queries[int(rng.integers(len(ds.queries)))],
+            p=float(rng.choice([0.5, 0.8, 1.0, 1.3, 1.7, 2.0])),
+            k=10, request_id=i,
+        )
+        for i in range(args.requests)
+    ]
+    t0 = time.time()
+    out = service.serve(reqs)
+    dt = time.time() - t0
+    st = service.stats
+    lat = service.latency_summary()
+    print(f"served {len(out)} mixed-p requests in {dt:.1f}s "
+          f"({len(out) / dt:.0f} qps, {st['batches']} ladder waves, "
+          f"queue peak {st['queue_peak']}); "
+          f"avg N_b={st['n_b'] / len(reqs):.0f} "
+          # probe = threshold-free work, spill = work under an inherited
+          # cross-segment bound (DESIGN.md §3); spill=0 off the
+          # two_phase/round_robin policies
+          f"(probe={st['n_b_probe'] / len(reqs):.0f} "
+          f"spill={st['n_b_spill'] / len(reqs):.0f}) "
+          f"N_p={st['n_p'] / len(reqs):.0f} "
+          # effective T_p under early-abandoning verification (DESIGN.md
+          # §8); no verification at all (n_p == 0) means full-dim = 1.0
+          f"dim-scan="
+          f"{st['dim_frac_w'] / st['n_p'] if st['n_p'] else 1.0:.2f} "
+          # f32 rows gathered per scored candidate (DESIGN.md §10); 1.0
+          # without --compressed, < 1 when the int8 screen is saving HBM
+          f"f32-rows="
+          f"{st['f32_rows_w'] / st['n_p'] if st['n_p'] else 1.0:.2f}; "
+          f"latency p50={lat['p50']:.0f}ms p95={lat['p95']:.0f}ms")
+    # engine scheduling outcomes (DESIGN.md §6): why batches dispatched,
+    # what admission control did, and where each request's time went
+    fl = st["flushes"]
+    print(f"  flushes: full={fl['full']} deadline={fl['deadline']} "
+          f"drain={fl['drain']}; shed={st['shed']} "
+          f"degraded={st['degraded']} padded_rows={st['padded_rows']}")
+    # fault tolerance (DESIGN.md §9): every admitted request ended DONE or
+    # deterministic FAILED; the counters say what the recovery paid
+    failures = service.engine.take_failures()
+    if args.fault_rate > 0 or st["faults"]:
+        print(f"  faults: caught={st['faults']} retries={st['retries']} "
+              f"quarantine_splits={st['quarantine_splits']} "
+              f"failed={st['failed']}"
+              + (f" (injector: rate={args.fault_rate}, "
+                 f"seed={args.fault_seed}, "
+                 f"injected={injector.injected})" if injector else ""))
+        for rid, err in sorted(failures.items())[:5]:
+            print(f"    request {rid} FAILED: {err}")
+    # degraded serving (DESIGN.md §11): achieved coverage, what the NaN
+    # guard caught, and the quarantine/recovery/probe tallies — printed
+    # whenever the engine ran degraded or the operator set a floor
+    hl = lat.get("health") or {}
+    tracker = hl.get("tracker")
+    if hl and (args.min_coverage > 0 or hl.get("poison_detected")
+               or hl.get("seg_quarantined") or hl.get("min_coverage_failed")
+               or (tracker and tracker.get("quarantined"))):
+        print(f"  health: coverage_mean={hl['coverage_mean']:.4f} "
+              f"(floor {args.min_coverage}) "
+              f"poison_detected={hl['poison_detected']} "
+              f"quarantined={hl['seg_quarantined']} "
+              f"recovered={hl['seg_recovered']} "
+              f"min_coverage_failed={hl['min_coverage_failed']}")
+        if tracker:
+            print(f"    tracker: by_state={tracker['by_state']} "
+                  f"probes={tracker['probes']} "
+                  f"failures={tracker['failures']} "
+                  f"generation={tracker['generation']}")
+    qm, cm = lat.get("queue_ms") or {}, lat.get("compute_ms") or {}
+    if qm and cm:
+        warm = lat.get("warm") or {}
+        warm_txt = (f", warm-only p50={warm['p50']:.0f}ms "
+                    f"p95={warm['p95']:.0f}ms" if warm else "")
+        print(f"  latency split: queue-wait p50={qm['p50']:.0f}ms "
+              f"p95={qm['p95']:.0f}ms | device-compute p50={cm['p50']:.0f}ms "
+              f"p95={cm['p95']:.0f}ms | {lat['cold_count']} requests rode a "
+              f"batch shape's first wave{warm_txt}")
+    for name, pb in st["per_base"].items():
+        if pb["queries"]:
+            print(f"  {name}: {pb['queries']} queries / {pb['batches']} "
+                  f"batches, avg N_b={pb['n_b'] / pb['queries']:.0f} "
+                  f"N_p={pb['n_p'] / pb['queries']:.0f} dim-scan="
+                  f"{pb['dim_frac_w'] / pb['n_p'] if pb['n_p'] else 1.0:.2f}"
+                  f" f32-rows="
+                  f"{pb['f32_rows_w'] / pb['n_p'] if pb['n_p'] else 1.0:.2f}")
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--retrieval", action="store_true",
+                    help="serve the universal-Lp vector search tier (the only "
+                         "mode ported so far)")
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--n", type=int, default=5000)
+    ap.add_argument("--segments", type=int, default=4,
+                    help="frozen segments in the sharded index (the unit "
+                         "of quarantine under --fault-sites segment)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="inject transient device-call faults at this "
+                         "rate (seeded, deterministic; DESIGN.md §9)")
+    ap.add_argument("--fault-seed", type=int, default=0)
+    ap.add_argument("--fault-sites", default=None,
+                    help="comma-separated injector site filter, e.g. "
+                         "'search' or 'segment' (the per-segment wildcard; "
+                         "DESIGN.md §11). Default: the three classic sites")
+    ap.add_argument("--min-coverage", type=float, default=0.0,
+                    help="degraded-serving floor (DESIGN.md §11): waves "
+                         "collected below this alive-coverage fraction "
+                         "retry after segment recovery or FAIL their "
+                         "requests with the achieved coverage attached")
+    ap.add_argument("--state-dir", default=None,
+                    help="durable index state: recover from this directory "
+                         "if it holds a snapshot, else snapshot the fresh "
+                         "build into it (inserts ride the WAL)")
+    ap.add_argument("--compressed", action="store_true",
+                    help="two-band verification over the int8 compressed "
+                         "band (DESIGN.md §10): bitwise-identical results, "
+                         "f32 row gathers only for screen survivors")
+    ap.add_argument("--device", default="cuda",
+                    help="where the index lives and searches run")
+    args = ap.parse_args(argv)
+    if not args.retrieval:
+        ap.error("only the retrieval tier (--retrieval) is ported; LM decode "
+                 "waits for the model scaffold's port")
+    return serve_retrieval(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

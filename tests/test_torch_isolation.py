@@ -50,5 +50,10 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
                  "repro_torch.kernels.ops", "repro_torch.core.uhnsw",
                  "repro_torch.kernels.lp_topk", "repro_torch.index.sharded",
                  "repro_torch.index.segment", "repro_torch.index.delta",
-                 "repro_torch.index.health"):
+                 "repro_torch.index.health", "repro_torch.index.wal",
+                 "repro_torch.index.persist", "repro_torch.retrieval.service",
+                 "repro_torch.retrieval.engine", "repro_torch.retrieval.engine.request",
+                 "repro_torch.retrieval.engine.scheduler",
+                 "repro_torch.retrieval.engine.pipeline",
+                 "repro_torch.retrieval.engine.faults", "repro_torch.launch.serve"):
         assert name in report["modules"]
