@@ -1,23 +1,25 @@
 #!/usr/bin/env python3
-"""Drives the port's U-HNSW paths once on one CUDA card, at full size.
+"""Drives the port's paths once on one CUDA card, at full size.
 
     python3 chip_smoke.py
 
 The corpus: the synthetic Sun corpus at its published size (78,306 x 512,
-256 queries, seed 0). Nine paths, each driven with the kernels' launch
-counts set to 0 just before it and read just after:
+256 queries, seed 0); the LM: tinyllama_1_1b at its full width and depth
+(random weights from a seed). Twelve paths, each driven with the kernels'
+launch counts set to 0 just before it and read just after:
 
   1. the query path (phase `search`): UHNSW.build(method="bulk_host", m = 16,
      dense steps on the card) -> UHNSW.search with the default parameters
      (t = 300, tau = 0.92, kappa = k // 2, ef = 2t, early-abandoning
-     verification) at k = 10 and p in {0.5, 0.8, 1.25, 2.0}, then a mixed-p
-     batch cycling through the same four values (gather_lp,
-     gather_lp_abandon);
+     verification) at k = 10 and p in {0.5, 1.25} (one p verified on each
+     base graph), then a mixed-p batch cycling through {0.5, 0.8, 1.25, 2.0}
+     (gather_lp, gather_lp_abandon);
   2. the shared-pass bulk build (phase `index_bulk`): UHNSW.build(
      method="bulk", m = 16), both graphs from one NN-Descent pass on the card
      (pairwise_lp, gather_lp, and gather_lp_multi, which scores each block of
-     the shared pass under both metrics in one launch), then the same
-     searches on its graphs (phase `search_bulk`);
+     the shared pass under both metrics in one launch), then the searches
+     on its graphs at p in {0.5, 0.8, 1.25, 2.0} and the mixed batch (phase
+     `search_bulk`);
   3. the compressed band (phase `band`): the bulk index searched with
      compressed_band=True (gather_lp_screen, gather_lp), then with
      energy_perm=True, at every p and the mixed batch;
@@ -41,17 +43,36 @@ counts set to 0 just before it and read just after:
      fresh index that must be bitwise equal, a recovery from a log whose
      newest record was cut short, and a poisoned segment restored from the
      snapshot;
-  8. serving (phase `serve`): 2,048 mixed-p requests through
+  8. serving (phase `serve`): 1,024 mixed-p requests through
      UniversalVectorService.serve (the engine) over the recovered index
      (gather_lp, gather_lp_abandon, and pairwise_lp on the delta scan),
      equal to serve_grouped; again under injected faults, and again with
      per-segment faults and a poisoned segment that is quarantined,
      restored and re-admitted;
   9. the command line (phase `serve_cli`): `repro_torch.launch.serve`
-     with --retrieval --n 200000 --state-dir, twice (build, then recover),
+     with --retrieval --n 100000 --state-dir, twice (build, then recover),
      each serving every request with no fault caught; a sample of the
      first run's kernel calls (d = 256) is held against the plain
-     versions.
+     versions;
+ 10. the LM serving path (phase `lm`): tinyllama_1_1b (22 layers, d 2048,
+     32 heads / 4 KV, vocab 32,000) from models.init_params, prefill and
+     decode against the full forward in f32 and bf16, the f32 forward on
+     the card against the CPU, ServeEngine.generate (bf16, batch 8, prompt
+     128, 128 greedy steps, twice), and `repro_torch.launch.serve --arch
+     tinyllama_1_1b` as a subprocess (plain torch: no kernel of the repo);
+ 11. kNN-LM (phase `knn_lm`): a U-HNSW datastore of 65,536 of the model's
+     hidden states (d = 2048) and their next tokens (KnnLM, host bulk
+     builder), memorized continuations and held-out NLL at several p
+     (gather_lp, gather_lp_abandon at d = 2048, a sample of their calls held
+     against the plain versions, and both timed at that width);
+ 12. the MLSH baseline (phase `mlsh`): MLSH on the Sun corpus on the card,
+     recall, N_p and rounds beside U-HNSW's N_p, and 16 queries against the
+     same code on the CPU (plain torch).
+
+Paths 10 and 11 (with the kNN-LM's datastore, phase `knn_store`) run in a
+second process, `chip_smoke.py --lm-paths`, started once the kernels are
+built and read before path 12: their seconds and rates share the card and
+the host with the retrieval phases beside them.
 
 It builds the CUDA kernels with nvcc (on a second thread, while the
 data, the brute-force truth and the host builder's graphs are made),
@@ -83,7 +104,9 @@ Without a CUDA device it exits with code 2 before doing anything.
 from __future__ import annotations
 
 import json
+import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -94,6 +117,7 @@ from pathlib import Path
 import numpy as np
 
 P_SCALAR = (0.5, 0.8, 1.25, 2.0)
+HOST_P = (0.5, 1.25)     # the host builder's graphs: one p verified on each base graph
 N_SUN = 78_306           # src/repro/core/datasets.py PAPER_DATASETS["sun"]
 N_QUERIES = 256
 K = 10
@@ -104,6 +128,7 @@ PLAIN_ROWS = 256         # rows of a level the plain pairwise version scores at 
 SHARED_IDS = 1024        # rows of the shared-ids (1-D) pairwise form
 MAX_RECALL_GAP = 0.002
 TIMING_REPS = 50
+PLAIN_REPS = 10          # the plain versions' times: a reference figure, not a kernel's
 GRAPH_CALLS = 20         # calls captured in one CUDA graph for a device-only time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 # H100 SXM float32 outside the tensor cores, NVIDIA data sheet. The figure
@@ -437,20 +462,81 @@ def phase_index_bulk(X, Q, truth, host):
     return index, launched, rec
 
 
+def path_kernel_row(Q, X, c, p, base: float, bd: int, label: str, k: int = K):
+    """The query path's two kernels on one batch of candidates `c`, each
+    against its plain version, timed, with its bound: gather_lp on the first
+    k candidates, gather_lp_abandon on the next kappa = k // 2 at the
+    thresholds of that first-k pass (as the verification loop makes them),
+    and again on the last kappa of the first k (all within the threshold),
+    with every 8th row frozen (-inf) and every 8th unbounded (+inf), so
+    that survivors are compared too. -> (row, the thresholds)."""
+    import torch
+
+    from repro_torch.kernels import lp_distance as kd
+    from repro_torch.kernels import ref
+
+    n, d = X.shape
+    kappa = k // 2
+    first = c.ids[:, :k].contiguous()
+    got = kd.gather_lp(Q, first, X, p)
+    want = ref.gather_lp_ref(Q, first, X, p)
+    _sync()
+    g_rel, g_abs, g_mis = rel_err(got, want)
+    check(g_mis == 0 and g_rel <= RTOL, f"gather_lp p={label}: rel {g_rel} mismatch {g_mis}")
+    thresh = torch.sort(want, dim=1).values[:, k - 1].contiguous()
+    batch = c.ids[:, k:k + kappa].contiguous()
+    sb = c.base_dists[:, k:k + kappa].contiguous()
+    nd_got, a_stats = compare_abandon(Q, batch, X, thresh, sb, p, base, bd, label)
+    r8 = torch.arange(Q.shape[0], device=X.device) % 8
+    thr2 = torch.where(r8 == 1, -torch.inf, torch.where(r8 == 2, torch.inf, thresh))
+    _, s_stats = compare_abandon(Q, c.ids[:, k - kappa:k].contiguous(), X, thr2.contiguous(),
+                                 c.base_dists[:, k - kappa:k].contiguous(), p, base, bd,
+                                 label + " survivors")
+    check(s_stats["survivors"] > 0, f"no survivors to compare at p={label}")
+
+    ope = ops_per_element(p)
+    ope_rows = np.broadcast_to(ope, (Q.shape[0],)) if ope.size > 1 else ope[0]
+    valid = ((first >= 0) & (first < n)).sum(1).cpu().numpy()
+    g_bytes = 4 * (valid.sum() * d + Q.numel() + 2 * first.numel() + Q.shape[0])
+    g_bound = bound(g_bytes, float(np.sum(valid * d * ope_rows)))
+    scanned = nd_got.sum(1).cpu().numpy()
+    live_rows = int((nd_got.sum(1) > 0).sum())
+    # the kernel loads one block ahead: a candidate that died mid-row
+    # (0 < nd < d) also read the block after the one it died in
+    ahead = int(((nd_got > 0) & (nd_got < d)).sum())
+    a_bytes = 4 * (scanned.sum() + ahead * bd + live_rows * d + 4 * batch.numel()
+                   + 2 * Q.shape[0])
+    a_bound = bound(a_bytes, float(np.sum(scanned * (ope_rows + 2))))
+    row = {
+        "p": label, "base_p": base, "d": d,
+        "gather_lp": {
+            "shape": list(first.shape), "max_rel_err": g_rel, "max_abs_err": g_abs,
+            **kernel_ms(lambda: kd.gather_lp(Q, first, X, p)),
+            "plain_ms": median_ms(lambda: ref.gather_lp_ref(Q, first, X, p), reps=PLAIN_REPS,
+                                  warmup=2),
+            "bound_ms": g_bound[0], "bound_by": g_bound[1]},
+        "gather_lp_abandon": {
+            "shape": list(batch.shape), "block_d": bd, **a_stats,
+            "survivor_case": s_stats,
+            "dim_frac": float(scanned.sum() / (batch.numel() * d)),
+            **kernel_ms(lambda: kd.gather_lp_abandon(Q, batch, X, thresh, sb, p, base, bd)),
+            "plain_ms": median_ms(lambda: ref.gather_lp_abandon_ref(
+                Q, batch, X, thresh, sb, p, base, bd), reps=PLAIN_REPS, warmup=2),
+            "bound_ms": a_bound[0], "bound_by": a_bound[1]},
+    }
+    return row, thresh
+
+
 def phase_kernels(index, Q):
     """Each kernel against its plain version at the path's shapes."""
     import torch
 
     from repro_torch.core.metrics import base_metric_for
-    from repro_torch.kernels import lp_distance as kd
-    from repro_torch.kernels import ref
     from repro_torch.kernels.ops import pick_abandon_block_d
 
     t0 = _now()
     X = index.X
-    n, d = X.shape
-    kappa = K // 2
-    bd = pick_abandon_block_d(d)
+    bd = pick_abandon_block_d(X.shape[1])
     cands = {b: index.search_stage_candidates(Q, b, K) for b in (1.0, 2.0)}
     p_mix = torch.tensor([P_SCALAR[i % 4] for i in range(Q.shape[0])],
                          dtype=torch.float32, device=X.device)
@@ -458,61 +544,11 @@ def phase_kernels(index, Q):
     rows = []
     worst = {"gather_lp": 0.0, "gather_lp_abandon": 0.0}
     for label, p, base in cases:
-        c = cands[base]
-        first = c.ids[:, :K].contiguous()
-        got = kd.gather_lp(Q, first, X, p)
-        want = ref.gather_lp_ref(Q, first, X, p)
-        _sync()
-        g_rel, g_abs, g_mis = rel_err(got, want)
-        check(g_mis == 0 and g_rel <= RTOL, f"gather_lp p={label}: rel {g_rel} mismatch {g_mis}")
-        worst["gather_lp"] = max(worst["gather_lp"], g_abs)
-        # thresholds from a real first-k pass, as the verification loop makes them
-        thresh = torch.sort(want, dim=1).values[:, K - 1].contiguous()
-        batch = c.ids[:, K:K + kappa].contiguous()
-        sb = c.base_dists[:, K:K + kappa].contiguous()
-        nd_got, a_stats = compare_abandon(Q, batch, X, thresh, sb, p, base, bd, label)
-        # the path's batch is mostly abandoned; also compare survivors: the
-        # last kappa of the first k (all within the threshold), with every
-        # 8th row frozen (-inf) and every 8th unbounded (+inf)
-        r8 = torch.arange(Q.shape[0], device=X.device) % 8
-        thr2 = torch.where(r8 == 1, -torch.inf, torch.where(r8 == 2, torch.inf, thresh))
-        _, s_stats = compare_abandon(Q, c.ids[:, K - kappa:K].contiguous(), X,
-                                     thr2.contiguous(), c.base_dists[:, K - kappa:K].contiguous(),
-                                     p, base, bd, label + " survivors")
-        check(s_stats["survivors"] > 0, f"no survivors to compare at p={label}")
-        worst["gather_lp_abandon"] = max(worst["gather_lp_abandon"], a_stats["max_abs_err"],
-                                         s_stats["max_abs_err"])
-
-        ope = ops_per_element(p)
-        ope_rows = np.broadcast_to(ope, (Q.shape[0],)) if ope.size > 1 else ope[0]
-        valid = ((first >= 0) & (first < n)).sum(1).cpu().numpy()
-        g_bytes = 4 * (valid.sum() * d + Q.numel() + 2 * first.numel() + Q.shape[0])
-        g_bound = bound(g_bytes, float(np.sum(valid * d * ope_rows)))
-        scanned = nd_got.sum(1).cpu().numpy()
-        live_rows = int((nd_got.sum(1) > 0).sum())
-        # the kernel loads one block ahead: a candidate that died mid-row
-        # (0 < nd < d) also read the block after the one it died in
-        ahead = int(((nd_got > 0) & (nd_got < d)).sum())
-        a_bytes = 4 * (scanned.sum() + ahead * bd + live_rows * d + 4 * batch.numel()
-                       + 2 * Q.shape[0])
-        a_bound = bound(a_bytes, float(np.sum(scanned * (ope_rows + 2))))
-        row = {
-            "p": label, "base_p": base,
-            "gather_lp": {
-                "shape": list(first.shape), "max_rel_err": g_rel, "max_abs_err": g_abs,
-                **kernel_ms(lambda: kd.gather_lp(Q, first, X, p)),
-                "plain_ms": median_ms(lambda: ref.gather_lp_ref(Q, first, X, p)),
-                "bound_ms": g_bound[0], "bound_by": g_bound[1]},
-            "gather_lp_abandon": {
-                "shape": list(batch.shape), "block_d": bd, **a_stats,
-                "survivor_case": s_stats,
-                "dim_frac": float(scanned.sum() / (batch.numel() * d)),
-                **kernel_ms(lambda: kd.gather_lp_abandon(Q, batch, X, thresh, sb, p,
-                                                         base, bd)),
-                "plain_ms": median_ms(lambda: ref.gather_lp_abandon_ref(
-                    Q, batch, X, thresh, sb, p, base, bd)),
-                "bound_ms": a_bound[0], "bound_by": a_bound[1]},
-        }
+        row, thresh = path_kernel_row(Q, X, cands[base], p, base, bd, label)
+        worst["gather_lp"] = max(worst["gather_lp"], row["gather_lp"]["max_abs_err"])
+        worst["gather_lp_abandon"] = max(worst["gather_lp_abandon"],
+                                         row["gather_lp_abandon"]["max_abs_err"],
+                                         row["gather_lp_abandon"]["survivor_case"]["max_abs_err"])
         rows.append(row)
         emit({"phase": "kernels", "case": row})
     extra = abandon_cases(Q, X, cands, p_mix, thresh)
@@ -583,8 +619,8 @@ def mixed_truth(truth, b: int):
     return torch.stack([truth[P_SCALAR[i % 4]][i] for i in range(b)])
 
 
-def phase_search(index, Q, truth, label: str):
-    """A query path, counted: every p, then the mixed batch.
+def phase_search(index, Q, truth, label: str, ps=P_SCALAR):
+    """A query path, counted: every p of `ps`, then the mixed batch.
 
     Recall is measured against a brute-force top-10 and reported with what
     bounds it: the share of the true top-10 inside the t candidates (the
@@ -603,11 +639,11 @@ def phase_search(index, Q, truth, label: str):
     t0 = _now()
     cands = {b: index.search_stage_candidates(Q, b, K) for b in (1.0, 2.0)}
     _search(index, Q, 0.8)                                    # warm-up, not counted
-    results, counts = counted(run_searches, index, Q)
+    results, counts = counted(run_searches, index, Q, ps)
     with plain_versions():
-        plain = run_searches(index, Q)
+        plain = run_searches(index, Q, ps)
     per_p = {}
-    for p in (*P_SCALAR, "mixed"):
+    for p in (*ps, "mixed"):
         ids, dists, st, secs, launched = results[p]
         tr = mixed_truth(truth, Q.shape[0]) if p == "mixed" else truth[p]
         r = recall(ids, tr)
@@ -635,11 +671,13 @@ def phase_search(index, Q, truth, label: str):
 
 
 def phase_mixed(results, label: str):
+    """Every row of the mixed batch whose p was also searched alone equals
+    that scalar call's row (ids, dists, N_p, N_b)."""
     t0 = time.perf_counter()
     ids_m, d_m, st_m, secs, launched = results["mixed"]
     p_mix = mixed_p(ids_m.shape[0])
     rows_equal = 0
-    for p in P_SCALAR:
+    for p in (p for p in P_SCALAR if p in results):
         sel = np.flatnonzero(p_mix == np.float32(p))
         ids, dists, st = results[p][:3]
         same = (bool((ids_m[sel] == ids[sel]).all()) and bool((d_m[sel] == dists[sel]).all())
@@ -1004,7 +1042,8 @@ def screen_path_rows(index, Q, p_mix):
                **kernel_ms(lambda: kd.gather_lp_screen(Qp, batch, band.codes, band.scale,
                                                        band.radius, thresh, sb, p, base, bd)),
                "plain_ms": median_ms(lambda: ref.gather_lp_screen_ref(
-                   Qp, batch, band.codes, band.scale, band.radius, thresh, sb, p, base, bd)),
+                   Qp, batch, band.codes, band.scale, band.radius, thresh, sb, p, base, bd),
+                   reps=PLAIN_REPS, warmup=2),
                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
         rows.append(row)
     suffix = sum(r["tight_cases"]["base_bound"]["suffix_kills"] for r in rows)
@@ -1619,16 +1658,17 @@ def phase_delta(idx):
 
 NAN_CASES = ((1.0, 1.25), (1.0, "mixed"), (2.0, "mixed"))
 DURABLE_ROWS = 1536      # inserts through DurableIndex.add: one compaction at DELTA_CAPACITY
-SERVE_REQUESTS = 2048
+SERVE_REQUESTS = 1024     # 2,048 until the LM phases came; cut for the smoke's time
 SERVE_P = (0.5, 0.8, 1.0, 1.3, 1.7, 2.0)   # src/repro/launch/serve.py's draw
 SERVE_BATCH = 256
 POISON_SEGMENT = 1
-CLI_N = 200_000          # the `deep` generator at its published width (d = 256)
+CLI_N = 100_000          # the `deep` generator at its published width (d = 256); 200,000 until
+                         # the LM phases came, cut for the smoke's time
 CLI_REQUESTS = 1024
 CLI_SEGMENTS = 4
-# recall@10 floor of the serve phase at each p: its reading on the H100
-# (0.823, 0.983, 1.0, 0.962, 0.973, 0.991) less about 0.03 to 0.05
-SERVE_RECALL_FLOOR = {0.5: 0.78, 0.8: 0.95, 1.0: 0.97, 1.3: 0.93, 1.7: 0.94, 2.0: 0.96}
+# recall@10 floor of the serve phase at each p: its reading on the H100 at
+# 1,024 requests (0.836, 0.981, 1.0, 0.970, 0.977, 0.991) less about 0.03 to 0.05
+SERVE_RECALL_FLOOR = {0.5: 0.79, 0.8: 0.95, 1.0: 0.97, 1.3: 0.93, 1.7: 0.94, 2.0: 0.96}
 SAMPLE_EVERY = 4         # sampled_kernels checks calls 0, 4, 8, ... of each kernel,
 SAMPLE_MAX = 10          # at most this many of each,
 SAMPLE_ROWS = 64         # on this many leading rows (pairwise_lp: SAMPLE_ROWS // 4)
@@ -2173,11 +2213,498 @@ def phase_serve_cli():
     emit({"phase": "serve_cli", "seconds": _now() - t0, "runs": runs})
 
 
-def kernels_line(kernel_rows, bulk_rows, rest_rows, launches, worst, serve_counts) -> list:
+LM_ARCH = "tinyllama_1_1b"  # src/repro/configs/tinyllama_1_1b.py, full width, all 22 layers
+LM_TF_BATCH = 4          # teacher forcing: prefill LM_TF_PREFILL tokens, then
+LM_TF_PREFILL = 256      # LM_TF_DECODE decode steps against the full forward
+LM_TF_DECODE = 64
+# f32: max |log-prob difference| and argmax agreement; read on the H100:
+# 1.7e-5 and 1.0 (256 of 256)
+LM_F32_MAX_ERR = 1e-4
+LM_F32_MIN_AGREE = 0.996
+LM_BF16_MIN_AGREE = 0.85  # bf16: tests/test_serve_consistency.py's rule
+LM_CPU_TOKENS = 64       # the f32 forward held against the CPU, B = 1
+LM_CPU_RTOL = 1e-5       # max |card - cpu| / max |cpu| of the hidden states (read: 1.8e-6)
+LM_SERVE_BATCH = 8       # ServeEngine.generate, bf16, greedy
+LM_SERVE_PROMPT = 128
+LM_SERVE_STEPS = 128
+LM_CLI = ("--arch", LM_ARCH, "--batch", "4", "--prompt-len", "16", "--steps", "32")
+KNN_BATCH = 128          # one SyntheticTokenPipeline batch: 128 x 512 = 65,536 pairs
+KNN_SEQ = 512
+KNN_MICRO = 16           # sequences per forward while the datastore is made
+KNN_M, KNN_K, KNN_LAM = 16, 8, 0.3   # examples/knn_lm_serving.py's lam
+KNN_QUERIES = 256
+KNN_MEM_P = (0.5, 1.0, 1.6)          # tests/test_retrieval.py's p values
+KNN_NLL_P = (0.5, 0.8, 1.0, 1.4, 2.0)
+KNN_TIMED_P = (0.5,)                 # the d = 2048 kernel rows
+# memorized share and recall@8 floors of the knn_lm phase at each p: the first
+# reading on the H100 (0.742 / 0.744, 0.742 / 0.746, 0.762 / 0.766) less 0.05;
+# the host bulk builder strands queries at this scale
+KNN_FLOOR = {0.5: (0.69, 0.69), 1.0: (0.69, 0.69), 1.6: (0.71, 0.71)}
+MLSH_M = 24              # benchmarks/table2_uhnsw_vs_mlsh.py's m
+MLSH_P = (0.5, 0.8)
+MLSH_CPU_QUERIES = 16
+MLSH_NP_RTOL = 0.02      # card against CPU: N_p per query
+MLSH_MIN_OVERLAP = 0.99  # card against CPU: mean top-10 overlap
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def start_lm_cli() -> subprocess.Popen:
+    """`python -m repro_torch.launch.serve` with LM_CLI, started at the
+    start of the LM paths so that its start-up overlaps them; phase `lm`
+    reads it."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", *LM_CLI],
+                            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def teacher_forcing(params, tokens, cfg, rt) -> dict:
+    """Prefill on the first LM_TF_PREFILL tokens, then one decode step per
+    later token, each step's log-probs against the full forward's at that
+    position: {"max_err", "argmax_agreement", "forward_s", "decode_s"}."""
+    import torch
+
+    from repro_torch.models import model
+
+    v = cfg.vocab_size
+    s0, s = LM_TF_PREFILL, tokens.shape[1]
+    head = model._head_matrix(params, cfg)
+    with torch.no_grad():
+        t = _now()
+        hidden = model.forward_train(params, {"tokens": tokens}, cfg, rt)
+        full = torch.log_softmax(
+            torch.einsum("bsd,dv->bsv", hidden[:, s0:], head)[..., :v].float(), dim=-1)
+        t_fwd = _now() - t
+        t = _now()
+        _, cache = model.prefill(params, {"tokens": tokens[:, :s0]}, cfg, rt, s_max=s)
+        err = torch.zeros((), device=tokens.device)
+        agree = torch.zeros((), dtype=torch.int64, device=tokens.device)
+        for i, pos in enumerate(range(s0, s)):
+            logits, cache = model.decode_step(params, tokens[:, pos:pos + 1], cache, pos, cfg,
+                                              rt)
+            g = torch.log_softmax(logits[:, 0, :v].float(), dim=-1)
+            err = torch.maximum(err, (g - full[:, i]).abs().max())
+            agree += (g.argmax(-1) == full[:, i].argmax(-1)).sum()
+        t_dec = _now() - t
+    return {"max_err": float(err), "argmax_agreement": int(agree) / (tokens.shape[0] * (s - s0)),
+            "forward_s": t_fwd, "prefill_and_decode_s": t_dec}
+
+
+def lm_weights(dev) -> dict:
+    """LM_ARCH's config and weights: models.init_params with a
+    torch.Generator seeded 0, in f32, and the same cast to bf16."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import model
+
+    t0 = _now()
+    cfg = get_arch(LM_ARCH)
+    params32 = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                 dtype=torch.float32, device=dev)
+    params16 = _tree_map(lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t,
+                         params32)
+    return {"cfg": cfg, "params32": params32, "params16": params16, "init_s": _now() - t0}
+
+
+def phase_lm(lm: dict, cli: subprocess.Popen, dev):
+    """The LM serving path at tinyllama_1_1b's full width, on `lm_weights`:
+    teacher forcing in f32 and bf16; the f32 forward on the card against
+    the CPU; a served bf16 run through ServeEngine.generate, twice; and the
+    command line (`start_lm_cli`). The path is plain torch:
+    it launches none of the repo's kernels, which the counts show. Drops
+    the f32 weights."""
+    import torch
+
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import model
+    from repro_torch.models.params import count_params
+    from repro_torch.serve.engine import ServeEngine
+
+    t0 = _now()
+    cfg, params32, params16 = lm["cfg"], lm.pop("params32"), lm["params16"]
+    rt = Runtime()
+    v = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, v, size=(
+        LM_TF_BATCH, LM_TF_PREFILL + LM_TF_DECODE)).astype(np.int32)).to(dev)
+    tf32, launched = counted(teacher_forcing, params32, tokens, cfg, rt)
+    check(tf32["max_err"] <= LM_F32_MAX_ERR and tf32["argmax_agreement"] >= LM_F32_MIN_AGREE,
+          f"lm f32 teacher forcing: {tf32}")
+    tf16 = teacher_forcing(params16, tokens, cfg, rt)
+    check(tf16["argmax_agreement"] >= LM_BF16_MIN_AGREE, f"lm bf16 teacher forcing: {tf16}")
+
+    t = _now()
+    with torch.no_grad():
+        one = tokens[:1, :LM_CPU_TOKENS]
+        h_card = model.forward_train(params32, {"tokens": one}, cfg, rt).cpu()
+        params_cpu = _tree_map(lambda t: t.cpu(), params32)
+        del params32
+        h_cpu = model.forward_train(params_cpu, {"tokens": one.cpu()}, cfg, rt)
+        del params_cpu
+    cpu_rel = float((h_card - h_cpu).abs().max() / h_cpu.abs().max())
+    check(bool(h_card.isfinite().all()) and cpu_rel <= LM_CPU_RTOL,
+          f"lm: the card's f32 forward against the CPU's: {cpu_rel}")
+    cpu_s = _now() - t
+
+    eng = ServeEngine(cfg, rt, params16, max_seq=LM_SERVE_PROMPT + LM_SERVE_STEPS)
+    prompts = rng.integers(0, v, size=(LM_SERVE_BATCH, LM_SERVE_PROMPT)).astype(np.int32)
+    t = _now()
+    out, served_launches = counted(eng.generate, prompts, LM_SERVE_STEPS)
+    gen_s = _now() - t
+    again = eng.generate(prompts, LM_SERVE_STEPS)
+    check(out.shape == (LM_SERVE_BATCH, LM_SERVE_STEPS) and bool(((out >= 0) & (out < v)).all())
+          and np.array_equal(out, again), "lm: served tokens out of range or not repeatable")
+    ptok = torch.from_numpy(prompts).to(dev)
+    with torch.no_grad():
+        prefill_s = []
+        for _ in range(3):
+            t = _now()
+            model.prefill(params16, {"tokens": ptok}, cfg, rt, s_max=LM_SERVE_PROMPT
+                          + LM_SERVE_STEPS)
+            prefill_s.append(_now() - t)
+    # the served run less its prefill, over its decode steps (each with the
+    # head product and the argmax)
+    decode_ms = (gen_s - min(prefill_s)) / (LM_SERVE_STEPS - 1) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**20
+
+    cli_out, cli_err = cli.communicate(timeout=600)
+    cli_lines = cli_out.splitlines()
+    check(cli.returncode == 0 and any(ln.startswith("generated (4, 32) tokens")
+                                      for ln in cli_lines),
+          f"lm: the command line exited {cli.returncode}: {cli_out[-2000:]} {cli_err[-2000:]}")
+    for name, counts in (("teacher forcing", launched), ("served", served_launches)):
+        check(not any(counts.values()), f"lm {name}: kernels launched on a plain-torch path")
+    emit({"phase": "lm", "seconds": _now() - t0, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": count_params(cfg), "init_s": lm["init_s"],
+          "teacher_forcing_f32": tf32, "teacher_forcing_bf16": tf16,
+          "card_vs_cpu_f32_rel": cpu_rel, "card_vs_cpu_s": cpu_s, "served": {
+              "batch": LM_SERVE_BATCH, "prompt": LM_SERVE_PROMPT, "steps": LM_SERVE_STEPS,
+              "generate_s": gen_s, "tokens_per_s": LM_SERVE_BATCH * LM_SERVE_STEPS / gen_s,
+              "prefill_s": prefill_s, "prefill_tokens_per_s":
+                  LM_SERVE_BATCH * LM_SERVE_PROMPT / min(prefill_s),
+              "decode_ms_per_step": decode_ms,
+              "decode_tokens_per_s": LM_SERVE_BATCH / decode_ms * 1e3,
+              "sample": out[0, :16].tolist()},
+          "peak_device_mib": peak, "launches": launched, "cli": cli_lines})
+
+
+def phase_knn_store(lm: dict, dev) -> dict:
+    """The kNN-LM's datastore: the bf16 forward's final hidden states
+    (d = 2048, f32) over one SyntheticTokenPipeline batch and their next
+    tokens, indexed by the host bulk builder (KnnLM.build_from_hidden),
+    which launches no kernel."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import model
+    from repro_torch.retrieval.knn_lm import KnnLM
+
+    t0 = _now()
+    cfg, params16 = lm["cfg"], lm["params16"]
+    rt = Runtime()
+    d = cfg.d_model
+    batch = SyntheticTokenPipeline(cfg, KNN_BATCH, KNN_SEQ, seed=0, device=dev).batch(0)
+    t_data = _now() - t0
+    t = _now()
+    hidden = torch.empty((KNN_BATCH * KNN_SEQ, d), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for i in range(0, KNN_BATCH, KNN_MICRO):
+            h = model.forward_train(params16, {"tokens": batch["tokens"][i:i + KNN_MICRO]},
+                                    cfg, rt)
+            hidden[i * KNN_SEQ:(i + KNN_MICRO) * KNN_SEQ] = h.reshape(-1, d).float()
+    values = batch["labels"].reshape(-1)
+    t_fwd = _now() - t
+    check(bool(hidden.isfinite().all()), "knn_store: datastore hidden states not finite")
+    t = _now()
+    knn, launched = counted(KnnLM.build_from_hidden, hidden, values, cfg.vocab_size, m=KNN_M,
+                            k=KNN_K, lam=KNN_LAM)
+    t_build = _now() - t
+    check(not any(launched.values()), f"knn_store: the host bulk build launched {launched}")
+    times = {"data_s": t_data, "forward_s": t_fwd, "build_s": t_build}
+    emit({"phase": "knn_store", "seconds": _now() - t0, "n": hidden.shape[0], "d": d,
+          "m": KNN_M, "datastore_mib": hidden.numel() * 4 / 2**20,
+          "index_mib": knn.index.index_size_bytes() / 2**20, **times})
+    return {"knn": knn, "hidden": hidden, "values": values,
+            "tokens": batch["tokens"].reshape(-1).long(), **times}
+
+
+def phase_knn_lm(lm: dict, store: dict, dev):
+    """kNN-LM over the U-HNSW datastore of the model's own hidden states
+    (`phase_knn_store`). T at each p is the median distance
+    from 256 stored states to their nearest other stored state (exact).
+    Memorized continuations: those 256 states as queries, at each KNN_MEM_P:
+    the share whose p_kNN argmax is the stored next token and recall@8
+    against an exact top-8, each held to KNN_FLOOR and to the same run with
+    the kernels' plain versions (within MAX_RECALL_GAP), and the mixed NLL
+    of the stored tokens, which must beat the LM's. Held-out NLL: the first
+    KNN_QUERIES positions of pipeline step 1 at each KNN_NLL_P, counted
+    (gather_lp, gather_lp_abandon at d = 2048), with a sample of the calls
+    held against the plain versions; the mixed NLL must stay within the
+    log(1 / (1 - lam)) that mixing can cost, and is reported beside the
+    neighbours' share of the query's current token and of the gold token.
+    Then the two kernels timed at this width."""
+    import torch
+
+    from repro_torch.core.hnsw import exact_topk
+    from repro_torch.core.metrics import base_metric_for
+    from repro_torch.core.uhnsw import recall
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.kernels.ops import pick_abandon_block_d
+    from repro_torch.models import model
+
+    t0 = _now()
+    rt = Runtime()
+    cfg, params16 = lm["cfg"], lm["params16"]
+    d = cfg.d_model
+    knn, hidden, values = store["knn"], store["hidden"], store["values"]
+    n = hidden.shape[0]
+
+    t = _now()
+    probe = torch.arange(0, n, n // KNN_QUERIES, device=dev)[:KNN_QUERIES]
+    mem_q, mem_gold = hidden[probe], values[probe]
+    truth, temps = {}, {}
+    for p in sorted({*KNN_MEM_P, *KNN_NLL_P}):
+        ids, dists = exact_topk(hidden, mem_q, p, KNN_K)
+        truth[p] = ids
+        other = torch.where(ids[:, 0].long() == probe, dists[:, 1], dists[:, 0])
+        temps[p] = float(torch.quantile(other ** (1.0 / p), 0.5))
+    t_truth = _now() - t
+
+    head = model._head_matrix(params16, cfg)
+    with torch.no_grad():
+        mem_lm = torch.log_softmax((mem_q.to(torch.bfloat16) @ head)[:, :cfg.vocab_size].float(),
+                                   dim=-1)
+    rows = torch.arange(KNN_QUERIES, device=dev)
+    mem_nll_lm = float(-mem_lm[rows, mem_gold].mean())
+
+    def memorized(p):
+        knn.temperature = temps[p]
+        ids, dists, _ = knn.index.search(mem_q, p, KNN_K)
+        lp = knn.neighbour_logprobs(ids, dists)
+        mixed = knn.mix_logprobs(mem_lm, lp)
+        return (float((lp.argmax(dim=1) == mem_gold).float().mean()), recall(ids, truth[p]),
+                float(-mixed[rows, mem_gold].mean()))
+
+    t = _now()
+    mem = {}
+    for p in KNN_MEM_P:
+        share, rec, nll_mixed = memorized(p)
+        with plain_versions():
+            share_plain, rec_plain, _ = memorized(p)
+        mem[str(p)] = {"T": temps[p], "memorized_share": share, "recall@8": rec,
+                       "memorized_share_plain": share_plain, "recall@8_plain": rec_plain,
+                       "nll_knn_lm": nll_mixed}
+        check(nll_mixed < mem_nll_lm, f"knn_lm p={p}: mixed NLL {nll_mixed} of the memorized "
+                                      f"continuations not below the LM's {mem_nll_lm}")
+        floor_share, floor_rec = KNN_FLOOR[p]
+        check(abs(share - share_plain) <= MAX_RECALL_GAP and abs(rec - rec_plain)
+              <= MAX_RECALL_GAP, f"knn_lm p={p}: kernels {share}, {rec} vs plain "
+                                 f"{share_plain}, {rec_plain}")
+        check(share >= floor_share and rec >= floor_rec,
+              f"knn_lm p={p}: memorized share {share} / recall@8 {rec} under the floor "
+              f"{KNN_FLOOR[p]}")
+    t_mem = _now() - t
+
+    held = SyntheticTokenPipeline(cfg, 1, KNN_QUERIES, seed=0, device=dev).batch(1)
+    with torch.no_grad():
+        hq = model.forward_train(params16, {"tokens": held["tokens"]}, cfg, rt)[0]
+        lm_lp = torch.log_softmax(
+            (hq @ model._head_matrix(params16, cfg))[:, :cfg.vocab_size].float(), dim=-1)
+    hq = hq.float().contiguous()
+    gold = held["labels"][0].long()
+    cur = held["tokens"][0].long()
+    store_tok = store["tokens"]
+    nll_lm = float(-lm_lp[rows, gold].mean())
+
+    def held_out():
+        out = {}
+        for p in KNN_NLL_P:
+            knn.temperature = temps[p]
+            ids, dists, _ = knn.index.search(hq, p, KNN_K)
+            knn_lp = knn.neighbour_logprobs(ids, dists)
+            mixed = knn.mix_logprobs(lm_lp, knn_lp)
+            # at the reference's default T = 1 every weight of such a query
+            # underflows the normaliser's 1e-30 floor (finding 2)
+            under = torch.exp(-dists.double()).sum(dim=1) < 1e-30
+            nbr = ids.long()
+            out[str(p)] = {"T": temps[p], "nll_knn_lm": float(-mixed[rows, gold].mean()),
+                           "nll_knn_only": float(-knn_lp[rows, gold].mean()),
+                           "gold_in_neighbours_share":
+                               float((values[nbr] == gold[:, None]).any(dim=1).float().mean()),
+                           "same_current_token_share":
+                               float((store_tok[nbr] == cur[:, None]).float().mean()),
+                           "nearest_dist_median": float(dists[:, 0].median()),
+                           "weights_underflow_share_at_T1": float(under.float().mean())}
+        return out
+
+    t = _now()
+    with sampled_kernels() as samples:
+        nll, launched = counted(held_out)
+    t_nll = _now() - t
+    best = min(nll, key=lambda p: nll[p]["nll_knn_lm"])
+    # mixing keeps (1 - lam) of the LM's probability, so it costs at most
+    # log(1 / (1 - lam)) nats a token whatever the neighbours are
+    check(all(r["nll_knn_lm"] <= nll_lm - np.log(1 - KNN_LAM) + 1e-6 for r in nll.values()),
+          f"knn_lm: a held-out mixed NLL above the LM's {nll_lm} + log(1 / (1 - lam)): {nll}")
+    check_launched(launched, ("gather_lp", "gather_lp_abandon"), "knn_lm held-out run")
+    check(all(samples[name] for name in ("gather_lp", "gather_lp_abandon")),
+          "knn_lm: a kernel with no call held against its plain version")
+    check(all(c["d"] == d for calls in samples.values() for c in calls),
+          "knn_lm: a sampled call not at the model's width")
+
+    t = _now()
+    bd = pick_abandon_block_d(d)
+    kernel_rows = []
+    for p in KNN_TIMED_P:
+        base = base_metric_for(p)
+        c = knn.index.search_stage_candidates(hq, base, KNN_K)
+        kernel_rows.append(path_kernel_row(hq, knn.index.X, c, p, base, bd, str(p), k=KNN_K)[0])
+    t_kernels = _now() - t
+    emit({"phase": "knn_lm", "seconds": _now() - t0, "n": n, "d": d, "k": KNN_K,
+          "lam": KNN_LAM, "truth_s": t_truth,
+          "memorized_s": t_mem, "held_out_s": t_nll, "kernels_s": t_kernels,
+          "memorized": mem, "memorized_nll_lm": mem_nll_lm, "nll_lm": nll_lm,
+          "held_out": nll, "best_p": best,
+          "launches": launched, "sampled_calls": samples, "kernel_rows": kernel_rows})
+    return launched, kernel_rows
+
+
+LM_PATHS_FLAG = "--lm-paths"
+LM_PATHS_TIMEOUT = 900
+
+
+def lm_paths(dev) -> None:
+    """The LM-side paths: the LM command line (beside them), the weights,
+    phases `knn_store`, `lm` and `knn_lm`. `chip_smoke.py --lm-paths` runs
+    them in a second process beside the retrieval phases (`start_lm_paths`),
+    so their seconds and rates share the card and the host with those."""
+    cli = start_lm_cli()
+    try:
+        lm = lm_weights(dev)
+        store = phase_knn_store(lm, dev)
+        phase_lm(lm, cli, dev)
+        phase_knn_lm(lm, store, dev)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.communicate()
+
+
+def start_lm_paths() -> subprocess.Popen:
+    """`chip_smoke.py --lm-paths` in a process group of its own (so that
+    its command line goes with it), its output kept in temporary files
+    for `finish_lm_paths`. Started once the kernels are built."""
+    import tempfile
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), LM_PATHS_FLAG],
+                            cwd=Path(__file__).resolve().parent, stdout=out, stderr=err,
+                            text=True, start_new_session=True)
+    proc.out, proc.err = out, err
+    return proc
+
+
+def finish_lm_paths(proc) -> tuple[dict, list]:
+    """Waits for the LM paths' process, fails unless it exited 0, relays
+    its phase lines, and returns its knn_lm phase's (launches, kernel rows)
+    for the kernels line."""
+    rc = proc.wait(timeout=LM_PATHS_TIMEOUT)
+    proc.out.seek(0)
+    proc.err.seek(0)
+    lines, err = proc.out.read().splitlines(), proc.err.read()
+    check(rc == 0, f"the LM paths exited {rc}: {err[-4000:]}")
+    knn = None
+    for ln in lines:
+        print(ln, flush=True)
+        if ln.startswith('{"phase": "knn_lm"'):
+            knn = json.loads(ln)
+    check(knn is not None, "the LM paths printed no knn_lm phase")
+    return knn["launches"], knn["kernel_rows"]
+
+
+def phase_mlsh(X, Q, truth, bulk_results):
+    """The MLSH baseline on the Sun corpus on the card (m = MLSH_M, seed 0),
+    the smoke's queries at each MLSH_P, k = K: recall@10 against the
+    smoke's truth, mean N_p and rounds beside U-HNSW's mean N_p on the
+    shared-pass graphs (phase search_bulk), and the idealized cost N_p x T_p
+    of both (paper §4.1.4). Then MLSH_CPU_QUERIES queries against the same
+    code on the CPU. The card sums each projection in another order than
+    the CPU, and a projection that moves across a window's edge moves one
+    collision count by one, so the rule is: rounds equal on all queries but
+    one at most, N_p within MLSH_NP_RTOL of the CPU's on every query, ids
+    equal wherever N_p is (up to near-ties: dists within RTOL), and a mean
+    top-10 overlap of at least MLSH_MIN_OVERLAP. Plain torch: no kernel of
+    the repo runs."""
+    import torch
+
+    from repro_torch.core.metrics import lp_distance_cost_model
+    from repro_torch.core.mlsh import MLSH
+    from repro_torch.core.uhnsw import recall
+
+    t0 = _now()
+    mlsh, launched = counted(MLSH, X, m=MLSH_M, seed=0)
+    build_s = _now() - t0
+    cpu = MLSH(X.cpu(), m=MLSH_M, seed=0, device="cpu")
+    d = X.shape[1]
+    per_p = {}
+    for p in MLSH_P:
+        t = _now()
+        (ids, dists, stats), searched = counted(mlsh.search_batch_stats, Q, p, K)
+        secs = _now() - t
+        n_p = np.array([s.n_p for s in stats])
+        u_np = float(bulk_results[p][2].n_p.float().mean())
+        c_ids, c_d, c_st = cpu.search_batch_stats(Q[:MLSH_CPU_QUERIES].cpu(), p, K)
+        g_ids = ids[:MLSH_CPU_QUERIES].cpu()
+        c_np = np.array([s.n_p for s in c_st])
+        np_rel = np.abs(n_p[:MLSH_CPU_QUERIES] - c_np) / c_np
+        rounds_equal = sum(s.rounds == stats[i].rounds for i, s in enumerate(c_st))
+        overlap = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / K
+                                 for a, b in zip(g_ids, c_ids)]))
+        for i in np.flatnonzero(np_rel == 0):
+            dc, dg = c_d[i].double(), dists[i].double().cpu()
+            check(torch.equal(c_ids[i], g_ids[i]) or bool(
+                ((dc - dg).abs() <= RTOL * dc.abs()).all()),
+                f"mlsh p={p} query {i}: same N_p as the CPU, other ids")
+        check(rounds_equal >= MLSH_CPU_QUERIES - 1 and np_rel.max() <= MLSH_NP_RTOL
+              and overlap >= MLSH_MIN_OVERLAP,
+              f"mlsh p={p}: against the CPU, rounds equal on {rounds_equal}, N_p off by "
+              f"{np_rel.max()}, top-10 overlap {overlap}")
+        check(bool(dists.isfinite().all()) and not any(searched.values()),
+              f"mlsh p={p}: output or launches {searched}")
+        per_p[str(p)] = {
+            "recall@10": recall(ids, truth[p]), "mean_n_p": float(n_p.mean()),
+            "max_n_p": int(n_p.max()), "mean_rounds": float(np.mean([s.rounds for s in stats])),
+            "batch_seconds": secs, "uhnsw_mean_n_p": u_np,
+            "uhnsw_recall@10": recall(bulk_results[p][0], truth[p]),
+            "idealized_cost": float(n_p.mean()) * lp_distance_cost_model(p, d),
+            "uhnsw_idealized_cost": u_np * lp_distance_cost_model(p, d),
+            "cpu_n_p_equal": int((np_rel == 0).sum()), "cpu_n_p_max_rel": float(np_rel.max()),
+            "cpu_rounds_equal": int(rounds_equal), "cpu_top10_overlap": overlap}
+    emit({"phase": "mlsh", "seconds": _now() - t0, "m": MLSH_M, "build_s": build_s,
+          "index_mib": mlsh.index_size_bytes() / 2**20, "per_p": per_p, "launches": launched})
+
+def kernels_line(kernel_rows, bulk_rows, rest_rows, launches, worst, serve_counts,
+                 knn_counts, knn_rows) -> list:
     """The summary line's entries, one per kernel: the timed row of its
     path's case, its launches on its path's counted run (and on the serve
     phase's clean run, `serve_launches`), and its largest error against
-    its plain version over every case."""
+    its plain version over every case. gather_lp and gather_lp_abandon also
+    carry their launches on the kNN-LM's held-out run and their times at
+    its width (d = 2048, p = KNN_TIMED_P[0]), under `knn_lm_*`."""
     mix_row = kernel_rows[-1]
     rows = {"gather_lp": mix_row["gather_lp"], "gather_lp_abandon": mix_row["gather_lp_abandon"],
             "pairwise_lp": bulk_rows["pairwise_lp"][0],
@@ -2186,6 +2713,11 @@ def kernels_line(kernel_rows, bulk_rows, rest_rows, launches, worst, serve_count
             "lp_topk": next(r for r in rest_rows["lp_topk"] if r["p"] == 1.25 and r["k"] == K)}
     worst = dict(worst)
     worst["gather_lp"] = max(worst["gather_lp"], worst.pop("gather_lp_build"))
+    for r in knn_rows:
+        worst["gather_lp"] = max(worst["gather_lp"], r["gather_lp"]["max_abs_err"])
+        worst["gather_lp_abandon"] = max(worst["gather_lp_abandon"],
+                                         r["gather_lp_abandon"]["max_abs_err"],
+                                         r["gather_lp_abandon"]["survivor_case"]["max_abs_err"])
     kernels = []
     for name, replaces in (("gather_lp", "src/repro/kernels/lp_distance.py:384"),
                            ("gather_lp_abandon", "src/repro/kernels/lp_distance.py:560"),
@@ -2202,6 +2734,15 @@ def kernels_line(kernel_rows, bulk_rows, rest_rows, launches, worst, serve_count
                         "max_abs_err": worst[name], "ms": r["ms"], "device_ms": r["device_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+        if name in ("gather_lp", "gather_lp_abandon"):    # the kNN-LM's path, d = 2048
+            kr = knn_rows[0][name]
+            check(knn_counts[name] > 0, f"{name} launched no time on the kNN-LM's path")
+            kernels[-1].update({"knn_lm_launches": knn_counts[name], "knn_lm_d": knn_rows[0]["d"],
+                                "knn_lm_shape": kr["shape"], "knn_lm_ms": kr["ms"],
+                                "knn_lm_device_ms": kr["device_ms"],
+                                "knn_lm_plain_ms": kr["plain_ms"],
+                                "knn_lm_bound_ms": kr["bound_ms"],
+                                "knn_lm_bound_by": kr["bound_by"]})
         if name == "gather_lp":     # the build's shared pass: one multi-p launch, both metrics
             check(launches["gather_lp_multi"] > 0, "gather_lp_multi launched no time in the build")
             bld = bulk_rows["gather_lp_build"]
@@ -2232,9 +2773,27 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
+    if sys.argv[1:] == [LM_PATHS_FLAG]:
+        lm_paths(dev)
+        return 0
     t_start = time.perf_counter()
     from repro_torch.kernels import _build
+
+    procs: list = []
+    try:
+        return run_phases(dev, t_start, _build, procs)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+
+def run_phases(dev, t_start: float, _build, procs: list) -> int:
+    """The phases in order; `procs` collects the processes they start."""
+    import torch
 
     with ThreadPoolExecutor(1) as pool:
         libs = pool.submit(_build.build_all)
@@ -2246,13 +2805,14 @@ def main() -> int:
     kernel_rows, worst = phase_kernels(host_index, Q)
     bulk_rows, worst_bulk = phase_kernels_bulk(bulk_index, Q, build_rec)
     del build_rec
-    results, counts = phase_search(host_index, Q, truth, "search")
+    results, counts = phase_search(host_index, Q, truth, "search", HOST_P)
     phase_mixed(results, "mixed")
     bulk_results, _ = phase_search(bulk_index, Q, truth, "search_bulk")
     phase_mixed(bulk_results, "mixed_bulk")
     band_counts = phase_band(bulk_index, Q, bulk_results)
     rest_rows, worst_rest, rest_counts = phase_kernels_rest(bulk_index, Q)
     phase_nan(bulk_index, Q)
+    procs.append(start_lm_paths())     # the kernels are built: they load them
     sharded_index, _ = phase_sharded(bulk_index.X, Q, truth, bulk_results)
     phase_delta(sharded_index)
     rdur, state = phase_durable(sharded_index, Q)
@@ -2262,6 +2822,8 @@ def main() -> int:
     del rdur
     shutil.rmtree(state)
     phase_serve_cli()
+    knn_counts, knn_rows = finish_lm_paths(procs[-1])
+    phase_mlsh(bulk_index.X, Q, truth, bulk_results)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2274,7 +2836,8 @@ def main() -> int:
                             "gather_lp_screen": band_counts["gather_lp_screen"],
                             "rowwise_lp": rest_counts["rowwise_lp"],
                             "lp_topk": rest_counts["lp_topk"]},
-                           {**worst, **worst_bulk, **worst_rest}, serve_counts)
+                           {**worst, **worst_bulk, **worst_rest}, serve_counts, knn_counts,
+                           knn_rows)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -8,7 +8,7 @@ The port of `repro` (JAX + Pallas for the TPU), mirroring its layout:
                          shared-pass NN-Descent builder (bulk_build),
                          batched beam search, U-HNSW (Algorithm 1) with
                          early-abandoning, two-band and energy-ordered
-                         verification
+                         verification, and the MLSH baseline (mlsh)
   repro_torch.index    — segment (partition and per-segment builds),
                          sharded (ShardedUHNSW: segments folded into one
                          batched search; independent / two_phase /
@@ -28,9 +28,18 @@ The port of `repro` (JAX + Pallas for the TPU), mirroring its layout:
                          micro-batcher, serve_grouped, serve_v1) and engine
                          (ServingEngine: deadline-flushed buckets, ladder
                          waves, the two-stage pipeline, fault injection,
-                         poisoned-segment quarantine and recovery)
-  repro_torch.launch   — serve: the retrieval tier's command line
-  repro_torch.convert  — carries a reference index into the port
+                         poisoned-segment quarantine and recovery) and
+                         knn_lm (kNN-LM over a U-HNSW datastore)
+  repro_torch.configs  — the ten architecture configs, field for field
+  repro_torch.dist     — Runtime on one card (the mesh is not ported)
+  repro_torch.models   — parameter specs, GQA attention, the dense FFN,
+                         prefill and decode (gqa+ffn blocks)
+  repro_torch.serve    — ServeEngine: batched prefill + decode
+  repro_torch.data     — the synthetic token pipeline
+  repro_torch.launch   — serve: the LM's and the retrieval tier's command
+                         line
+  repro_torch.convert  — carries a reference index or LM's weights into
+                         the port
 
 Entry points run on "cuda" unless the caller passes device="cpu"; on CPU
 tensors the kernels' plain versions run instead. It imports neither jax

@@ -1,9 +1,12 @@
-"""Carries index state from the reference package into the port.
+"""Carries state from the reference package into the port.
 
-U-HNSW has no weights: its state is the corpus and the two graphs. This
-module turns a reference `repro.core.build.HNSWGraph`'s fields, handed over
-as numpy arrays, into the port's `HNSWGraph` on a chosen device, so that
-both packages can search the same index. It imports nothing of `repro`.
+U-HNSW has no weights: its state is the corpus and the two graphs.
+`graph_from_reference` turns a reference `repro.core.build.HNSWGraph`'s
+fields, handed over as numpy arrays, into the port's `HNSWGraph` on a
+chosen device, so that both packages can search the same index. The LM
+scaffold does have weights: `lm_params_from_reference` turns the
+reference's parameter tree, as numpy arrays, into the port's, so that both
+packages run the same model. It imports nothing of `repro`.
 """
 
 from __future__ import annotations
@@ -36,3 +39,33 @@ def graph_from_reference(adjacency, level_nodes, local_index, entry_point: int,
         data=put(data, torch.float32).contiguous(),
         levels=put(levels, torch.int32),
     )
+
+
+def _leaf_to_torch(a, device, dtype) -> torch.Tensor:
+    """One numpy leaf as a tensor. A bfloat16 array (numpy's extension
+    dtype, which torch.as_tensor refuses) goes through its 16-bit pattern."""
+    a = np.array(a)     # a writable copy: a JAX array's buffer is read-only
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def lm_params_from_reference(tree, device="cuda", dtype=None):
+    """The port's LM parameter tree from the reference's, leaf for leaf.
+
+    tree: the reference's tree with its leaves as numpy arrays (bf16 leaves
+    as numpy's bfloat16 extension dtype): {"embed", "final_norm", ...,
+    "segments": [{"blocks": [per-kind dicts of (R, ...) stacked leaves]}]}
+    (`repro.models.params._map_specs` has already dropped `kinds` and
+    `repeats`). dtype: cast every floating-point leaf to it (None keeps
+    the reference's dtypes).
+    """
+    if isinstance(tree, dict):
+        return {k: lm_params_from_reference(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [lm_params_from_reference(v, device, dtype) for v in tree]
+    return _leaf_to_torch(tree, device, dtype)

@@ -1,14 +1,17 @@
-"""Serving entry point: the universal-Lp retrieval tier.
+"""Serving entry point: LM decode + optional universal-Lp retrieval tier.
 
-Counterpart of `repro.launch.serve`'s retrieval half:
+Counterpart of `repro.launch.serve`:
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b \
+      --batch 4 --prompt-len 16 --steps 32
   PYTHONPATH=src python -m repro_torch.launch.serve --retrieval --requests 64
   PYTHONPATH=src python -m repro_torch.launch.serve --retrieval \
       --n 200000 --requests 1024 --state-dir DIR
 
-It runs on the CUDA card unless given --device cpu. The reference's LM
-decode path (`serve_lm`) waits for the model scaffold's port; without
---retrieval, `main` exits with an error that says so.
+It runs on the CUDA card unless given --device cpu. The LM runs on one card
+and only archs whose blocks are all `gqa+ffn` (the dense GQA family): a
+mesh (--data or --model other than 1) and the other block kinds exit with
+an error naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -18,6 +21,42 @@ import sys
 import time
 
 import numpy as np
+
+from repro_torch.configs.base import get_arch
+
+
+def serve_lm(args) -> int:
+    """Random-init weights from --seed, greedy (or --temperature) decode of
+    a batch of prompts drawn from np.random.default_rng(--seed), as the
+    reference draws them; prints what the reference's `serve_lm` prints."""
+    import torch
+
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        # keep every f32 and bf16 product's partial sums in f32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = get_arch(args.arch, smoke=args.smoke)
+    rt = Runtime(moe_decode_gather=args.moe_decode_gather)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    eng = ServeEngine(cfg, rt, params, max_seq=args.prompt_len + args.steps)
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, size=(args.batch, args.prompt_len)
+    ).astype(np.int32)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.time()
+    out = eng.generate(prompts, steps=args.steps, temperature=args.temperature)
+    dt = time.time() - t0
+    tok = args.batch * args.steps
+    print(f"generated {out.shape} tokens in {dt:.1f}s "
+          f"({tok / dt:.1f} tok/s on {dev.type})")
+    print("sample:", out[0][:16].tolist())
+    return 0
 
 
 def serve_retrieval(args) -> int:
@@ -163,9 +202,17 @@ def serve_retrieval(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama_1_1b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--moe-decode-gather", action="store_true")
     ap.add_argument("--retrieval", action="store_true",
-                    help="serve the universal-Lp vector search tier (the only "
-                         "mode ported so far)")
+                    help="serve the universal-Lp vector search tier instead")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--n", type=int, default=5000)
     ap.add_argument("--segments", type=int, default=4,
@@ -194,12 +241,21 @@ def main(argv=None) -> int:
                          "band (DESIGN.md §10): bitwise-identical results, "
                          "f32 row gathers only for screen survivors")
     ap.add_argument("--device", default="cuda",
-                    help="where the index lives and searches run")
+                    help="where the model or the index lives and runs")
     args = ap.parse_args(argv)
-    if not args.retrieval:
-        ap.error("only the retrieval tier (--retrieval) is ported; LM decode "
-                 "waits for the model scaffold's port")
-    return serve_retrieval(args)
+    if args.retrieval:
+        return serve_retrieval(args)
+    from repro_torch.dist.sharding import MESH_ITEM
+    from repro_torch.models.model import KINDS_ITEM, unported_kinds
+
+    if args.data != 1 or args.model != 1:
+        ap.error(f"--data {args.data} --model {args.model}: the port serves on one card; "
+                 f"a mesh waits for {MESH_ITEM}")
+    missing = unported_kinds(get_arch(args.arch, smoke=args.smoke))
+    if missing:
+        ap.error(f"--arch {args.arch}: block kinds {missing} are not ported; they wait "
+                 f"for {KINDS_ITEM}")
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,194 @@
+"""Attention mixers: GQA, prefill and decode paths (plain PyTorch).
+
+Counterpart of `repro.models.attention`'s GQA part. Prefill attention is
+the reference's flash formulation, forward only: a loop over query chunks
+with an inner loop over only the causally reachable (and, with a window,
+window-reachable) KV chunks, carrying online-softmax statistics in f32. It
+keeps peak memory at one (Tq, Tk) score tile per head group.
+
+Decode attends one query position against the whole KV cache.
+
+Precision follows the reference: the score and PV products take their
+inputs at the activations' dtype and accumulate and return f32 (the
+reference's `preferred_element_type=jnp.float32`). A bf16 input is exact in
+f32, so both products run on f32 copies; on the card they need TF32 off,
+which is torch's default for matrix products.
+
+The reference's MLA mixer (`mla_forward`, `mla_decode`) and the flash
+backward (a `torch.autograd.Function` here) wait for later slices
+(ROADMAP queue 1 items 11(b) and 11(a)).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+
+_NEG = -1e30
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm in f32, cast back to x's dtype before the weight multiplies."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding on half-split pairs. x: (..., S, H, hd), positions:
+    (..., S). Angles, cos and sin in f32; the result in x's dtype."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[..., :, None].float() * freqs  # (..., S, half)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.float32 else t.float()
+
+
+def _chunk_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int | None) -> torch.Tensor:
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    return mask
+
+
+def _flash_fwd(q, k, v, window, chunk_q: int, chunk_k: int, scale: float):
+    """(out (B, S, KV, G, vd) in q's dtype, lse (B, S, KV, G) f32), the
+    reference's `_flash_fwd_impl`: each query chunk visits only its
+    reachable KV chunks."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    vd = v.shape[-1]
+    g = h // kv
+    nq, nk = s // chunk_q, s // chunk_k
+    qr = q.reshape(b, nq, chunk_q, kv, g, hd)
+    kr = k.reshape(b, nk, chunk_k, kv, hd)
+    vr = v.reshape(b, nk, chunk_k, kv, vd)
+    ar = torch.arange(max(chunk_q, chunk_k), device=q.device)
+    outs, lses = [], []
+    for i in range(nq):
+        qc = _f32(qr[:, i])
+        q_pos = i * chunk_q + ar[:chunk_q]
+        j_hi = (i + 1) * chunk_q // chunk_k
+        j_lo = 0 if window is None else max(i * chunk_q - (window - 1), 0) // chunk_k
+        acc = torch.zeros((b, chunk_q, kv, g, vd), dtype=torch.float32, device=q.device)
+        m = torch.full((b, chunk_q, kv, g), _NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, chunk_q, kv, g), dtype=torch.float32, device=q.device)
+        for j in range(j_lo, j_hi):
+            kc, vc = kr[:, j], vr[:, j]
+            k_pos = j * chunk_k + ar[:chunk_k]
+            scores = torch.einsum("bqkgd,btkd->bqkgt", qc, _f32(kc)) * scale
+            mask = _chunk_mask(q_pos, k_pos, window)
+            scores = torch.where(mask[None, :, None, None, :], scores, _NEG)
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            p = torch.exp(scores - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bqkgt,btkd->bqkgd", _f32(p.to(vc.dtype)), _f32(vc))
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        l_safe = torch.clamp_min(l, 1e-30)
+        outs.append((acc / l_safe[..., None]).to(q.dtype))
+        lses.append(m + torch.log(l_safe))
+    out = torch.stack(outs, dim=1).reshape(b, s, kv, g, vd)
+    lse = torch.stack(lses, dim=1).reshape(b, s, kv, g)
+    return out, lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int | None = None, chunk_q: int = 512, chunk_k: int = 512,
+                    scale: float | None = None) -> torch.Tensor:
+    """Causal (optionally windowed) flash attention, forward.
+
+    q (B, S, H, hd), k (B, S, KV, hd), v (B, S, KV, vd) -> (B, S, H, vd) in
+    q's dtype. Chunks of min(512, S); S must divide by them, as the
+    reference asserts."""
+    b, s, h, hd = q.shape
+    vd = v.shape[-1]
+    scale = scale if scale is not None else hd ** -0.5
+    chunk_q = min(chunk_q, s)
+    chunk_k = min(chunk_k, s)
+    if s % chunk_q or s % chunk_k:
+        raise ValueError(f"sequence length {s} does not divide by the chunks "
+                         f"({chunk_q}, {chunk_k})")
+    out, _ = _flash_fwd(q, k, v, window, chunk_q, chunk_k, scale)
+    return out.reshape(b, s, h, vd)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
+                     *, window: int | None = None, scale: float | None = None) -> torch.Tensor:
+    """One-token attention against the full cache.
+
+    q (B, 1, H, hd), caches (B, S_max, KV, hd | vd), pos the number of
+    cached tokens before this one. f32 scores; (p / l) cast to the cache's
+    dtype before the PV product."""
+    b, _, h, hd = q.shape
+    kv = k_cache.shape[2]
+    g = h // kv
+    scale = scale if scale is not None else hd ** -0.5
+    qh = q.reshape(b, kv, g, hd) * scale
+    scores = torch.einsum("bkgd,btkd->bkgt", _f32(qh), _f32(k_cache))
+    k_pos = torch.arange(k_cache.shape[1], device=q.device)
+    mask = k_pos[None, :] <= pos
+    if window is not None:
+        mask &= (pos - k_pos[None, :]) < window
+    scores = torch.where(mask[:, None, None, :], scores, _NEG)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgt,btkd->bkgd", _f32((p / l).to(v_cache.dtype)), _f32(v_cache))
+    return out.reshape(b, 1, h, -1).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA block
+# ---------------------------------------------------------------------------
+
+
+def _qkv(params: dict, h: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
+    q = torch.einsum("bsd,dhe->bshe", h, params["wq"])
+    k = torch.einsum("bsd,dke->bske", h, params["wk"])
+    v = torch.einsum("bsd,dke->bske", h, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def gqa_forward(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig, *,
+                window: int | None = None):
+    """Full-sequence GQA (prefill). Returns (out, (k, v))."""
+    h = rmsnorm(x, params["ln"], cfg.norm_eps)
+    q, k, v = _qkv(params, h, positions, cfg)
+    out = flash_attention(q, k, v, window=window)
+    return torch.einsum("bshe,hed->bsd", out, params["wo"]), (k, v)
+
+
+def gqa_decode(params: dict, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               pos: int, cfg: ArchConfig, *, window: int | None = None):
+    """Single-token GQA. Writes this token's k and v into the caches in
+    place at pos % cache_len (the reference's `dynamic_update_slice` on a
+    donated cache) and returns (out, (k_cache, v_cache)).
+
+    Full attention only: the windowed ring buffer of local attention waits
+    for ROADMAP queue 1 item 11(b)."""
+    if window is not None:
+        raise NotImplementedError("local attention's ring-buffer decode waits for "
+                                  "ROADMAP queue 1 item 11(b)")
+    h = rmsnorm(x, params["ln"], cfg.norm_eps)
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(params, h, positions, cfg)
+    write_idx = pos % k_cache.shape[1]
+    k_cache[:, write_idx] = k[:, 0]
+    v_cache[:, write_idx] = v[:, 0]
+    out = decode_attention(q, k_cache, v_cache, pos)
+    return torch.einsum("bshe,hed->bsd", out, params["wo"]), (k_cache, v_cache)

@@ -1,0 +1,234 @@
+"""Model assembly, serving half: embedding -> block segments -> prefill /
+decode (plain PyTorch).
+
+Counterpart of `repro.models.model`. The reference stacks each run of
+identical layers (`params.layer_plan`) on a leading 'layers' axis and scans
+it with `lax.scan`; here each segment's stacked leaves are sliced layer by
+layer in a Python loop, so the parameter tree keeps the reference's shape
+and carries across leaf for leaf (`repro_torch.convert`).
+
+Only `gqa+ffn` blocks run so far (the dense GQA family: six of the ten
+configs). Every other block kind raises `NotImplementedError` naming
+ROADMAP queue 1 item 11(b); the loss (`loss_fn`, `_chunked_xent`) comes
+with training, item 11(a).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import Runtime, constrain
+from repro_torch.models import attention as attn
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.params import ParamSpec, _map_specs, layer_plan
+
+PORTED_KINDS = ("gqa+ffn",)
+KINDS_ITEM = "ROADMAP queue 1 item 11(b) (the other block kinds)"
+
+
+def unported_kinds(cfg: ArchConfig) -> list[str]:
+    """The block kinds of cfg's layer plan that the port cannot run yet."""
+    return sorted({k for unit, _ in layer_plan(cfg) for k in unit} - set(PORTED_KINDS))
+
+
+def _refuse(kind: str):
+    raise NotImplementedError(f"block kind {kind!r} is not ported; it waits for {KINDS_ITEM}")
+
+
+def _layer(tree, r: int):
+    """Layer r's slice of a tree of stacked (R, ...) leaves (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+# ---------------------------------------------------------------------------
+# embedding / frontends
+# ---------------------------------------------------------------------------
+
+
+def embed_input(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """tokens (B,S) int -> embeddings; or stub-frontend frames (B,S,fd),
+    projected in the wider of the frames' and the projection's dtypes."""
+    if "frames" in batch:
+        frames, proj = batch["frames"], params["frontend_proj"]
+        dt = torch.promote_types(frames.dtype, proj.dtype)
+        return torch.einsum("bsf,fd->bsd", frames.to(dt), proj.to(dt))
+    return params["embed"][batch["tokens"].long()]
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(kind: str, bp: dict, x, positions, cfg: ArchConfig, rt: Runtime):
+    """One layer (sequence mixer + channel mixer), full-sequence mode.
+
+    Returns (x, cache_entry) — the entry feeds the decode path when this
+    runs as prefill."""
+    if kind not in PORTED_KINDS:
+        _refuse(kind)
+    y, (k, v) = attn.gqa_forward(bp["mixer"], x, positions, cfg)
+    x = x + y
+    x = x + ffn_mod.ffn_forward(bp["channel"], x, cfg, rt)
+    return x, {"k": k, "v": v}
+
+
+def _apply_block_decode(kind: str, bp: dict, x, cache: dict, pos: int, cfg: ArchConfig,
+                        rt: Runtime):
+    """One layer, single-token decode mode; writes the cache entry in place.
+    Returns (x, cache)."""
+    if kind not in PORTED_KINDS:
+        _refuse(kind)
+    y, (k_c, v_c) = attn.gqa_decode(bp["mixer"], x, cache["k"], cache["v"], pos, cfg)
+    x = x + y
+    x = x + ffn_mod.ffn_forward(bp["channel"], x, cfg, rt)
+    return x, {"k": k_c, "v": v_c}
+
+
+# ---------------------------------------------------------------------------
+# backbone
+# ---------------------------------------------------------------------------
+
+
+def _backbone(params: dict, x, positions, cfg: ArchConfig, rt: Runtime,
+              collect_cache: bool = False, s_max: int | None = None):
+    """Runs the segment stack. Returns (hidden, cache segments | None).
+
+    With collect_cache, each segment's entries come stacked (R, B, S', ...)
+    with the sequence axis right-padded with zeros to S' = max(S, s_max)."""
+    caches = []
+    for (unit, repeats), seg in zip(layer_plan(cfg), params["segments"]):
+        entries: list[dict | None] = [None] * len(unit)
+        for r in range(repeats):
+            x = constrain(x, rt, ("batch", "seq_act", "embed_act"))
+            for u, (kind, bp) in enumerate(zip(unit, seg["blocks"])):
+                x, entry = _apply_block(kind, _layer(bp, r), x, positions, cfg, rt)
+                if not collect_cache:
+                    continue
+                if entries[u] is None:
+                    entries[u] = {
+                        key: t.new_zeros((repeats, t.shape[0], max(t.shape[1], s_max or 0),
+                                          *t.shape[2:]))
+                        for key, t in entry.items()}
+                for key, t in entry.items():
+                    entries[u][key][r, :, :t.shape[1]] = t
+        caches.append(entries)
+    return x, caches if collect_cache else None
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s = x.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+
+
+def forward_train(params: dict, batch: dict, cfg: ArchConfig, rt: Runtime) -> torch.Tensor:
+    """Full-sequence forward -> final hidden states (B, S, d) (forward
+    only: the training step comes with ROADMAP queue 1 item 11(a))."""
+    x = embed_input(params, batch, cfg)
+    x, _ = _backbone(params, x, _positions(x), cfg, rt)
+    return attn.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _head_matrix(params: dict, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.tie_embeddings or "lm_head" not in params:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# serving: cache specs, prefill, decode
+# ---------------------------------------------------------------------------
+
+
+def cache_specs(cfg: ArchConfig, batch: int, s_max: int) -> list:
+    """ParamSpec tree for the decode cache, aligned with params['segments']
+    (every kind's shapes; only the GQA caches are used so far)."""
+    hd = cfg.resolved_head_dim
+    d = cfg.d_model
+    bf16, f32 = torch.bfloat16, torch.float32
+    segs = []
+    for unit, repeats in layer_plan(cfg):
+        entries = []
+        for kind in unit:
+            if kind == "ssd":
+                s = cfg.ssm
+                d_in = s.expand * d
+                nh = d_in // s.head_dim
+                gn = s.n_groups * s.state_dim
+                entries.append({
+                    "state": ParamSpec((repeats, batch, nh, s.state_dim, s.head_dim),
+                                       ("layers", "batch", "inner", None, None), f32),
+                    "tail": ParamSpec((repeats, batch, s.conv_width - 1, d_in + 2 * gn),
+                                      ("layers", "batch", None, "inner"), bf16),
+                })
+                continue
+            mixer, _ = kind.split("+")
+            if mixer in ("gqa", "local_attn"):
+                # local attention caches a ring buffer of `window` slots
+                s_len = min(s_max, cfg.local_window) if mixer == "local_attn" else s_max
+                kv = ParamSpec((repeats, batch, s_len, cfg.n_kv_heads, hd),
+                               ("layers", "batch", "cache_seq", "kv", "head"), bf16)
+                entries.append({"k": kv, "v": kv})
+            elif mixer == "mla":
+                m = cfg.mla
+                entries.append({
+                    "ckv": ParamSpec((repeats, batch, s_max, m.kv_lora_rank),
+                                     ("layers", "batch", "cache_seq", None), bf16),
+                    "krope": ParamSpec((repeats, batch, s_max, 1, m.rope_head_dim),
+                                       ("layers", "batch", "cache_seq", None, None), bf16),
+                })
+            elif mixer == "rglru":
+                w = cfg.ssm.conv_width if cfg.ssm else 4
+                entries.append({
+                    "state": ParamSpec((repeats, batch, d), ("layers", "batch", "inner"), f32),
+                    "tail": ParamSpec((repeats, batch, w - 1, d),
+                                      ("layers", "batch", None, "inner"), bf16),
+                })
+        segs.append(entries)
+    return segs
+
+
+def init_cache(cfg: ArchConfig, batch: int, s_max: int, rt: Runtime, device="cuda") -> list:
+    """Zeroed decode caches of `cache_specs`' shapes and dtypes."""
+    del rt
+    return _map_specs(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
+                      cache_specs(cfg, batch, s_max))
+
+
+def prefill(params: dict, batch: dict, cfg: ArchConfig, rt: Runtime, s_max: int | None = None):
+    """Full-sequence forward that also materializes the decode cache.
+
+    Returns (last_hidden (B, 1, d), cache). Attention caches come out
+    (R, B, S, ...), right-padded with zeros to s_max when s_max > S."""
+    x = embed_input(params, batch, cfg)
+    x, caches = _backbone(params, x, _positions(x), cfg, rt, collect_cache=True, s_max=s_max)
+    hidden = attn.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return hidden[:, -1:, :], caches
+
+
+def decode_step(params: dict, tokens: torch.Tensor, cache: list, pos, cfg: ArchConfig,
+                rt: Runtime):
+    """One decode step. tokens: (B, 1) int; pos: the number of tokens
+    already in the cache (an int). The cache is updated in place (the
+    reference donates it). Returns (logits (B, 1, V) in the params'
+    dtype, cache)."""
+    pos = int(pos)
+    x = embed_input(params, {"tokens": tokens}, cfg)
+    for (unit, repeats), seg, seg_cache in zip(layer_plan(cfg), params["segments"], cache):
+        for r in range(repeats):
+            for kind, bp, entry in zip(unit, seg["blocks"], seg_cache):
+                x, _ = _apply_block_decode(kind, _layer(bp, r), x, _layer(entry, r), pos, cfg,
+                                           rt)
+    hidden = attn.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = torch.einsum("bsd,dv->bsv", hidden, _head_matrix(params, cfg))
+    return logits, cache
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, dtype=torch.bfloat16,
+                device="cuda") -> dict:
+    from repro_torch.models.params import init_params as _init
+
+    return _init(cfg, generator, dtype, device)

@@ -415,7 +415,8 @@ def test_serve_cli_creates_then_recovers(tmp_path, capsys):
     """`--retrieval --state-dir D` twice at n = 2,000 on the CPU (two
     segments, so the shared-pass builder runs): the first run snapshots a
     fresh build, the second recovers it; both serve and report the same n.
-    Without --retrieval the command line refuses the LM path."""
+    Without --retrieval the command line serves the LM, and refuses a mesh
+    (ROADMAP item 11(c))."""
     args = ["--retrieval", "--n", "2000", "--segments", "2", "--requests", "48",
             "--state-dir", str(tmp_path / "state"), "--device", "cpu"]
     assert serve_main(args) == 0
@@ -426,6 +427,9 @@ def test_serve_cli_creates_then_recovers(tmp_path, capsys):
     assert "recovered durable index" in second and "n=2000, 2 segments" in second
     for out in (first, second):
         assert "served 48 mixed-p requests" in out and "flushes:" in out
+    assert serve_main(["--arch", "tinyllama_1_1b", "--smoke", "--steps", "4",
+                       "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith("generated (4, 4) tokens")
     with pytest.raises(SystemExit):
-        serve_main(["--n", "2000"])
-    assert "only the retrieval tier" in capsys.readouterr().err
+        serve_main(["--n", "2000", "--model", "2"])
+    assert "11(c)" in capsys.readouterr().err

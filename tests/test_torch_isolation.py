@@ -55,5 +55,12 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
                  "repro_torch.retrieval.engine", "repro_torch.retrieval.engine.request",
                  "repro_torch.retrieval.engine.scheduler",
                  "repro_torch.retrieval.engine.pipeline",
-                 "repro_torch.retrieval.engine.faults", "repro_torch.launch.serve"):
+                 "repro_torch.retrieval.engine.faults", "repro_torch.launch.serve",
+                 "repro_torch.configs", "repro_torch.configs.base",
+                 "repro_torch.configs.tinyllama_1_1b", "repro_torch.configs.deepseek_v3_671b",
+                 "repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.models",
+                 "repro_torch.models.params", "repro_torch.models.attention",
+                 "repro_torch.models.ffn", "repro_torch.models.model", "repro_torch.serve",
+                 "repro_torch.serve.engine", "repro_torch.data", "repro_torch.data.pipeline",
+                 "repro_torch.retrieval.knn_lm", "repro_torch.core.mlsh", "repro_torch.convert"):
         assert name in report["modules"]

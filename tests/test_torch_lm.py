@@ -1,0 +1,325 @@
+"""The port's LM serving path against `repro`: configs, parameter specs,
+prefill, decode, greedy generation and the command line.
+
+Weights: the reference's `init_params` draws them (jax.random), and
+`repro_torch.convert.lm_params_from_reference` carries them across leaf for
+leaf, so parity does not depend on the two packages' random draws. Inputs
+are numpy arrays from seeded generators.
+
+The reference runs under a (1, 1) mesh whose axes are `AxisType.Auto`:
+`repro.launch.mesh.make_local_mesh` builds `Explicit` axes on this jax
+(0.9), under which `repro.dist.sharding.constrain` asserts inside
+`_backbone`. That is why the reference's own `test_serve_consistency.py`
+fails here; under Auto axes the same calls run unchanged.
+
+Tolerances: in f32 the port's log-probs agree with the reference's within
+1e-4 (the two frameworks sum in other orders), hidden states and caches
+within 1e-4 absolute, and greedy tokens are equal on the stated seeds. In
+bf16, rounding differences compound through the layers, so the rule is
+the reference test's own: log-probs within 0.15 and argmax agreement at
+least 0.85.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AxisType
+
+from repro.configs.base import ARCH_IDS
+from repro.configs.base import get_arch as r_get_arch
+from repro.dist.sharding import Runtime as RRuntime
+from repro.dist.sharding import set_mesh
+from repro.models import model as r_model
+from repro.models import params as r_params
+from repro.serve.engine import ServeEngine as RServeEngine
+from repro_torch.configs.base import get_arch
+from repro_torch.convert import lm_params_from_reference
+from repro_torch.dist.sharding import Runtime
+from repro_torch.models import model
+from repro_torch.models import params as p_params
+from repro_torch.serve.engine import ServeEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
+
+ROOT = Path(__file__).resolve().parents[1]
+B, S0, S = 2, 16, 32
+F32_TOL = 1e-4
+BF16_TOL, BF16_AGREE = 0.15, 0.85
+DENSE = ["tinyllama_1_1b", "qwen2_5_32b", "nemotron_4_340b", "musicgen_large"]
+UNPORTED = {"deepseek_v3_671b": "mla+ffn", "llama4_scout_17b_a16e": "gqa+moe",
+            "recurrentgemma_2b": "rglru+ffn", "mamba2_1_3b": "ssd"}
+RT = Runtime()
+
+
+def ref_mesh():
+    return jax.make_mesh((1, 1), ("data", "model"), axis_types=(AxisType.Auto, AxisType.Auto))
+
+
+def log_softmax(a: np.ndarray, vocab: int) -> np.ndarray:
+    a = np.asarray(a, np.float64)[..., :vocab]
+    m = a.max(-1, keepdims=True)
+    return a - m - np.log(np.exp(a - m).sum(-1, keepdims=True))
+
+
+def to_np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().numpy().copy()
+
+
+def ref_tree_np(params):
+    return jax.tree.map(np.asarray, params)
+
+
+def frames_for(cfg, tokens: np.ndarray) -> np.ndarray:
+    """The pipeline's stub frames for these tokens, in f32."""
+    return np.sin(tokens[..., None] * np.linspace(0.01, 1, cfg.frontend_dim)).astype(np.float32)
+
+
+def reference_run(arch: str, dtype):
+    """The reference's outputs on the smoke config: the full forward's
+    hidden (and logits), prefill's last hidden and caches, and each decode
+    step's logits; with the weights as numpy arrays and the tokens."""
+    cfg = r_get_arch(arch, smoke=True)
+    mesh = ref_mesh()
+    rt = RRuntime(mesh=mesh)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    out = {"tokens": tokens}
+    with set_mesh(mesh):
+        params = r_params.init_params(cfg, jax.random.PRNGKey(1), dtype=dtype)
+        head = r_model._head_matrix(params, cfg)
+        hidden = r_model.forward_train(params, {"tokens": jnp.asarray(tokens)}, cfg, rt)
+        out["hidden"] = np.asarray(hidden, np.float32)
+        out["full_logits"] = np.asarray(jnp.einsum("bsd,dv->bsv", hidden, head), np.float32)
+        if cfg.frontend:
+            fr = jnp.asarray(frames_for(cfg, tokens), jnp.bfloat16)
+            out["frames_hidden"] = np.asarray(
+                r_model.forward_train(params, {"frames": fr}, cfg, rt), np.float32)
+        last, cache = r_model.prefill(params, {"tokens": jnp.asarray(tokens[:, :S0])}, cfg, rt,
+                                      s_max=S)
+        out["last"] = np.asarray(last, np.float32)
+        out["cache"] = jax.tree.map(lambda a: np.asarray(a, np.float32), cache)
+        step = jax.jit(lambda p, t, c, pos: r_model.decode_step(p, t, c, pos, cfg, rt))
+        logits = []
+        for t in range(S0, S):
+            lg, cache = step(params, jnp.asarray(tokens[:, t:t + 1]), cache, jnp.int32(t))
+            logits.append(np.asarray(lg[:, 0], np.float32))
+        out["decode_logits"] = np.stack(logits, 1)
+        out["params"] = ref_tree_np(params)
+    return cfg, out
+
+
+def port_run(arch: str, params: dict, tokens: np.ndarray):
+    cfg = get_arch(arch, smoke=True)
+    tok = torch.from_numpy(tokens)
+    out = {}
+    with torch.no_grad():
+        hidden = model.forward_train(params, {"tokens": tok}, cfg, RT)
+        out["hidden"] = to_np(hidden)
+        out["full_logits"] = to_np(hidden @ model._head_matrix(params, cfg))
+        if cfg.frontend:
+            fr = torch.from_numpy(frames_for(cfg, tokens)).to(torch.bfloat16)
+            out["frames_hidden"] = to_np(model.forward_train(params, {"frames": fr}, cfg, RT))
+        last, cache = model.prefill(params, {"tokens": tok[:, :S0]}, cfg, RT, s_max=S)
+        out["last"] = to_np(last)
+        out["cache"] = [[{k: to_np(v) for k, v in e.items()} for e in seg] for seg in cache]
+        logits = []
+        for t in range(S0, S):
+            lg, cache = model.decode_step(params, tok[:, t:t + 1], cache, t, cfg, RT)
+            logits.append(to_np(lg[:, 0]))
+        out["decode_logits"] = np.stack(logits, 1)
+    return cfg, out
+
+
+@pytest.fixture(scope="module")
+def f32_runs():
+    runs = {}
+    for arch in DENSE:
+        cfg, ref = reference_run(arch, jnp.float32)
+        params = lm_params_from_reference(ref["params"], device="cpu")
+        runs[arch] = (cfg, ref, params, port_run(arch, params, ref["tokens"])[1])
+    return runs
+
+
+def spec_rows(tree, prefix=""):
+    """(path, shape, logical, init, fan_in, dtype name) of every leaf."""
+    if isinstance(tree, dict):
+        return [r for k in sorted(tree) if k not in ("kinds", "repeats")
+                for r in spec_rows(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [r for i, v in enumerate(tree) for r in spec_rows(v, f"{prefix}/{i}")]
+    dt = tree.dtype
+    name = str(dt).replace("torch.", "") if isinstance(dt, torch.dtype) else np.dtype(dt).name
+    return [(prefix, tuple(tree.shape), tuple(tree.logical), tree.init,
+             tuple(tree.fan_in_axes), name)]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_configs_specs_and_counts_match_reference(arch):
+    """Every config, full and smoke: the same fields, layer plan, spec tree
+    (shapes, logical axes, inits, fan-in, dtypes) and parameter counts."""
+    for smoke in (False, True):
+        cfg, rcfg = get_arch(arch, smoke=smoke), r_get_arch(arch, smoke=smoke)
+        assert repr(cfg) == repr(rcfg)
+        assert p_params.layer_plan(cfg) == r_params.layer_plan(rcfg)
+        assert spec_rows(p_params.param_specs(cfg)) == spec_rows(r_params.param_specs(rcfg))
+        for active in (False, True):
+            assert p_params.count_params(cfg, active) == r_params.count_params(rcfg, active)
+    assert cfg.param_count() == rcfg.param_count()
+    assert cfg.active_param_count() == rcfg.active_param_count()
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_init_params_shapes_dtypes_and_constant_inits(arch):
+    """The port's init_params gives the reference's tree of shapes and
+    dtypes, and the reference's constant leaves (ones, zeros) exactly."""
+    cfg = get_arch(arch, smoke=True)
+    ours = model.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    theirs = r_params.init_params(r_get_arch(arch, smoke=True), jax.random.PRNGKey(0))
+    specs = {row[0]: row for row in spec_rows(p_params.param_specs(cfg))}
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {p: v for k in tree for p, v in leaves(tree[k], f"{prefix}/{k}").items()}
+        if isinstance(tree, list):
+            return {p: v for i, t in enumerate(tree) for p, v in leaves(t, f"{prefix}/{i}").items()}
+        return {prefix: tree}
+
+    ol, tl = leaves(ours), leaves(theirs)
+    assert ol.keys() == tl.keys() == specs.keys()
+    for path, t in ol.items():
+        assert tuple(t.shape) == tuple(tl[path].shape), path
+        assert str(t.dtype).replace("torch.", "") == str(tl[path].dtype), path
+        if specs[path][3] in ("ones", "zeros"):
+            np.testing.assert_array_equal(to_np(t), np.asarray(tl[path], np.float32))
+        elif specs[path][3] == "normal":
+            assert float(t.float().std()) > 0, path
+
+
+def test_lm_params_from_reference_keeps_bf16_bits():
+    cfg = r_get_arch("qwen2_5_32b", smoke=True)
+    ref = ref_tree_np(r_params.init_params(cfg, jax.random.PRNGKey(2)))
+    ours = lm_params_from_reference(ref, device="cpu")
+    wq_ref = ref["segments"][0]["blocks"][0]["mixer"]["wq"]
+    wq = ours["segments"][0]["blocks"][0]["mixer"]["wq"]
+    assert wq.dtype == torch.bfloat16
+    np.testing.assert_array_equal(wq.view(torch.int16).numpy(), wq_ref.view(np.int16))
+    assert lm_params_from_reference(ref, device="cpu", dtype=torch.float32)["embed"].dtype \
+        == torch.float32
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_prefill_decode_match_reference_f32(f32_runs, arch):
+    cfg, ref, _, ours = f32_runs[arch]
+    v = cfg.vocab_size
+    np.testing.assert_allclose(ours["hidden"], ref["hidden"], atol=F32_TOL, rtol=0)
+    if cfg.frontend:
+        np.testing.assert_allclose(ours["frames_hidden"], ref["frames_hidden"], atol=F32_TOL,
+                                   rtol=0)
+    np.testing.assert_allclose(ours["last"], ref["last"], atol=F32_TOL, rtol=0)
+    assert len(ours["cache"]) == len(ref["cache"])
+    for seg_o, seg_r in zip(ours["cache"], ref["cache"]):
+        for eo, er in zip(seg_o, seg_r):
+            assert eo.keys() == er.keys() == {"k", "v"}
+            for key in eo:
+                assert eo[key].shape == er[key].shape
+                np.testing.assert_allclose(eo[key], er[key], atol=F32_TOL, rtol=0)
+    err = np.abs(log_softmax(ours["decode_logits"], v) - log_softmax(ref["decode_logits"], v))
+    assert err.max() < F32_TOL, err.max()
+    assert (ours["decode_logits"][..., :v].argmax(-1)
+            == ref["decode_logits"][..., :v].argmax(-1)).all()
+
+
+@pytest.mark.parametrize("arch", DENSE + ["minitron_4b", "llava_next_34b"])
+def test_port_decode_matches_its_own_forward(arch):
+    """Teacher forcing: prefill + decode give the full forward's
+    log-probs position by position (the reference's invariant), in f32."""
+    cfg = get_arch(arch, smoke=True)
+    params = model.init_params(cfg, torch.Generator().manual_seed(1), dtype=torch.float32,
+                               device="cpu")
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    _, out = port_run(arch, params, tokens)
+    v = cfg.vocab_size
+    err = np.abs(log_softmax(out["decode_logits"], v)
+                 - log_softmax(out["full_logits"][:, S0:], v))
+    assert err.max() < F32_TOL, err.max()
+    assert (out["decode_logits"][..., :v].argmax(-1)
+            == out["full_logits"][:, S0:, :v].argmax(-1)).all()
+
+
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "qwen2_5_32b"])
+def test_decode_matches_reference_bf16(arch):
+    cfg, ref = reference_run(arch, jnp.bfloat16)
+    params = lm_params_from_reference(ref["params"], device="cpu")
+    _, ours = port_run(arch, params, ref["tokens"])
+    v = cfg.vocab_size
+    for a, b in ((ours["decode_logits"], ref["decode_logits"]),
+                 (ours["decode_logits"], ours["full_logits"][:, S0:])):
+        g, w = log_softmax(a, v), log_softmax(b, v)
+        assert np.abs(g - w).max() < BF16_TOL
+        assert (g.argmax(-1) == w.argmax(-1)).mean() >= BF16_AGREE
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_serve_engine_greedy_matches_reference(seed):
+    """Greedy tokens equal the reference's ServeEngine's, f32 weights carried
+    across; a second call returns the same tokens."""
+    rcfg = r_get_arch("tinyllama_1_1b", smoke=True)
+    mesh = ref_mesh()
+    prompts = np.random.default_rng(seed).integers(0, rcfg.vocab_size, size=(2, 8)).astype(
+        np.int32)
+    with set_mesh(mesh):
+        rparams = r_params.init_params(rcfg, jax.random.PRNGKey(seed), dtype=jnp.float32)
+        want = RServeEngine(rcfg, RRuntime(mesh=mesh), rparams, max_seq=24).generate(
+            prompts, steps=10)
+    cfg = get_arch("tinyllama_1_1b", smoke=True)
+    eng = ServeEngine(cfg, RT, lm_params_from_reference(ref_tree_np(rparams), device="cpu"),
+                      max_seq=24)
+    got = eng.generate(prompts, steps=10)
+    assert got.dtype == np.int32 and got.shape == (2, 10)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(eng.generate(prompts, steps=10), got)
+    sampled = eng.generate(prompts, steps=10, temperature=0.8, seed=3)
+    np.testing.assert_array_equal(eng.generate(prompts, steps=10, temperature=0.8, seed=3),
+                                  sampled)
+    assert ((sampled >= 0) & (sampled < cfg.vocab_size)).all()
+
+
+@pytest.mark.parametrize("arch", sorted(UNPORTED))
+def test_unported_block_kinds_raise(arch):
+    cfg = get_arch(arch, smoke=True)
+    assert UNPORTED[arch] in model.unported_kinds(cfg)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match=r"11\(b\)"):
+        model.forward_train(params, {"tokens": tokens}, cfg, RT)
+    with pytest.raises(NotImplementedError, match=r"11\(b\)"):
+        model.prefill(params, {"tokens": tokens}, cfg, RT)
+
+
+def test_runtime_refuses_a_mesh_and_its_modes():
+    for kw in ({"mesh": object()}, {"explicit_tp": True}, {"seq_shard": True},
+               {"full_dp": True}):
+        with pytest.raises(NotImplementedError, match=r"11\(c\)"):
+            Runtime(**kw)
+    rt = Runtime(remat=True, moe_decode_gather=True)
+    assert (rt.dp_size, rt.tp_size, rt.dp_axes) == (1, 1, ())
+
+
+def run_cli(*args):
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args],
+                          capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+
+
+def test_cli_serves_the_lm_and_refuses_what_is_not_ported():
+    out = run_cli("--arch", "tinyllama_1_1b", "--smoke", "--device", "cpu")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[0].startswith("generated (4, 32) tokens")
+    mesh = run_cli("--smoke", "--device", "cpu", "--model", "2")
+    assert mesh.returncode == 2 and "11(c)" in mesh.stderr
+    kinds = run_cli("--arch", "mamba2_1_3b", "--smoke", "--device", "cpu")
+    assert kinds.returncode == 2 and "11(b)" in kinds.stderr
