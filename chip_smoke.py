@@ -5,8 +5,9 @@
 
 The corpus: the synthetic Sun corpus at its published size (78,306 x 512,
 256 queries, seed 0); the LM: tinyllama_1_1b at its full width and depth
-(random weights from a seed). Twelve paths, each driven with the kernels'
-launch counts set to 0 just before it and read just after:
+(random weights from a seed, and the weights it trains). Fourteen paths,
+each driven with the kernels' launch counts set to 0 just before it and
+read just after:
 
   1. the query path (phase `search`): UHNSW.build(method="bulk_host", m = 16,
      dense steps on the card) -> UHNSW.search with the default parameters
@@ -60,19 +61,33 @@ launch counts set to 0 just before it and read just after:
      the card against the CPU, ServeEngine.generate (bf16, batch 8, prompt
      128, 128 greedy steps, twice), and `repro_torch.launch.serve --arch
      tinyllama_1_1b` as a subprocess (plain torch: no kernel of the repo);
- 11. kNN-LM (phase `knn_lm`): a U-HNSW datastore of 65,536 of the model's
-     hidden states (d = 2048) and their next tokens (KnnLM, host bulk
+ 11. kNN-LM (phase `knn_lm`): a U-HNSW datastore of 65,536 of the trained
+     model's hidden states (d = 2048) and their next tokens (KnnLM, host bulk
      builder), memorized continuations and held-out NLL at several p
      (gather_lp, gather_lp_abandon at d = 2048, a sample of their calls held
      against the plain versions, and both timed at that width);
  12. the MLSH baseline (phase `mlsh`): MLSH on the Sun corpus on the card,
      recall, N_p and rounds beside U-HNSW's N_p, and 16 queries against the
-     same code on the CPU (plain torch).
+     same code on the CPU (plain torch);
+ 13. training (phase `train`): tinyllama_1_1b at full width, bf16
+     parameters and f32 AdamW moments from init_train_state, 8 x 512
+     tokens a step from make_batch_iterator (from pipeline step 2) through
+     make_train_step, held to the reference's loss rule; one step with
+     microbatches=2 against one with 1, one compressed step (error
+     feedback exact), loss_fn's gradients on the card against the CPU, the
+     flash backward alone against plain autograd at the model's attention
+     shape, and a checkpoint round trip (plain torch: no kernel of the
+     repo); the trained weights then feed `knn_store` and `knn_lm`;
+ 14. the training command line (phase `train_cli`):
+     `repro_torch.launch.train --smoke` uninterrupted, crashed at step 7
+     (exit 42) and resumed from its checkpoint, the resumed losses against
+     the uninterrupted ones, and `repro_torch.launch.supervisor` restarting
+     a command that fails once.
 
-Paths 10 and 11 (with the kNN-LM's datastore, phase `knn_store`) run in a
-second process, `chip_smoke.py --lm-paths`, started once the kernels are
-built and read before path 12: their seconds and rates share the card and
-the host with the retrieval phases beside them.
+Paths 10, 11, 13 and 14 (with the kNN-LM's datastore, phase `knn_store`)
+run in a second process, `chip_smoke.py --lm-paths`, started once the
+kernels are built and read before path 12: their seconds and rates share
+the card and the host with the retrieval phases beside them.
 
 It builds the CUDA kernels with nvcc (on a second thread, while the
 data, the brute-force truth and the host builder's graphs are made),
@@ -112,6 +127,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -2236,10 +2252,11 @@ KNN_QUERIES = 256
 KNN_MEM_P = (0.5, 1.0, 1.6)          # tests/test_retrieval.py's p values
 KNN_NLL_P = (0.5, 0.8, 1.0, 1.4, 2.0)
 KNN_TIMED_P = (0.5,)                 # the d = 2048 kernel rows
-# memorized share and recall@8 floors of the knn_lm phase at each p: the first
-# reading on the H100 (0.742 / 0.744, 0.742 / 0.746, 0.762 / 0.766) less 0.05;
-# the host bulk builder strands queries at this scale
-KNN_FLOOR = {0.5: (0.69, 0.69), 1.0: (0.69, 0.69), 1.6: (0.71, 0.71)}
+# memorized share and recall@8 floors of the knn_lm phase at each p, on the
+# `train` phase's weights: the first reading on the H100 (0.699 / 0.694,
+# 0.699 / 0.703, 0.703 / 0.707) less 0.05; the host bulk builder strands
+# queries at this scale
+KNN_FLOOR = {0.5: (0.64, 0.64), 1.0: (0.64, 0.65), 1.6: (0.65, 0.65)}
 MLSH_M = 24              # benchmarks/table2_uhnsw_vs_mlsh.py's m
 MLSH_P = (0.5, 0.8)
 MLSH_CPU_QUERIES = 16
@@ -2400,11 +2417,12 @@ def phase_lm(lm: dict, cli: subprocess.Popen, dev):
           "peak_device_mib": peak, "launches": launched, "cli": cli_lines})
 
 
-def phase_knn_store(lm: dict, dev) -> dict:
-    """The kNN-LM's datastore: the bf16 forward's final hidden states
-    (d = 2048, f32) over one SyntheticTokenPipeline batch and their next
-    tokens, indexed by the host bulk builder (KnnLM.build_from_hidden),
-    which launches no kernel."""
+def phase_knn_store(lm: dict, params16: dict, dev) -> dict:
+    """The kNN-LM's datastore: the bf16 forward (weights `params16`, the
+    `train` phase's) final hidden states (d = 2048, f32) over one
+    SyntheticTokenPipeline batch (step 0, which training never sees) and
+    their next tokens, indexed by the host bulk builder
+    (KnnLM.build_from_hidden), which launches no kernel."""
     import torch
 
     from repro_torch.data.pipeline import SyntheticTokenPipeline
@@ -2413,7 +2431,7 @@ def phase_knn_store(lm: dict, dev) -> dict:
     from repro_torch.retrieval.knn_lm import KnnLM
 
     t0 = _now()
-    cfg, params16 = lm["cfg"], lm["params16"]
+    cfg = lm["cfg"]
     rt = Runtime()
     d = cfg.d_model
     batch = SyntheticTokenPipeline(cfg, KNN_BATCH, KNN_SEQ, seed=0, device=dev).batch(0)
@@ -2441,9 +2459,10 @@ def phase_knn_store(lm: dict, dev) -> dict:
             "tokens": batch["tokens"].reshape(-1).long(), **times}
 
 
-def phase_knn_lm(lm: dict, store: dict, dev):
+def phase_knn_lm(lm: dict, params16: dict, store: dict, dev):
     """kNN-LM over the U-HNSW datastore of the model's own hidden states
-    (`phase_knn_store`). T at each p is the median distance
+    (`phase_knn_store`), with the same weights `params16` (the `train`
+    phase's). T at each p is the median distance
     from 256 stored states to their nearest other stored state (exact).
     Memorized continuations: those 256 states as queries, at each KNN_MEM_P:
     the share whose p_kNN argmax is the stored next token and recall@8
@@ -2468,7 +2487,7 @@ def phase_knn_lm(lm: dict, store: dict, dev):
 
     t0 = _now()
     rt = Runtime()
-    cfg, params16 = lm["cfg"], lm["params16"]
+    cfg = lm["cfg"]
     d = cfg.d_model
     knn, hidden, values = store["knn"], store["hidden"], store["values"]
     n = hidden.shape[0]
@@ -2583,25 +2602,384 @@ def phase_knn_lm(lm: dict, store: dict, dev):
     return launched, kernel_rows
 
 
+TRAIN_BATCH, TRAIN_SEQ = 8, 512    # the global batch of every training step
+TRAIN_START = 2          # pipeline steps 0 and 1 are knn_store's and knn_lm's batches
+TRAIN_STEPS = 20         # the loss rule holds with a margin of 1.8 after 40 steps and
+#                          of 1.5 after 20 (PERF.md §6)
+TRAIN_LOSS_DROP = 0.3    # tests/test_train_features.py:44: mean of the last 5 losses
+#                          below the mean of the first 5 less this
+TRAIN_MB_ATOL = 2e-2     # tests/test_train_features.py:67: microbatches, bf16 params
+TRAIN_GRAD_TOKENS = 64   # loss_fn's gradients on the card against the CPU, f32, B = 1
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4    # each gradient leaf within this share of its largest magnitude
+FLASH_B, FLASH_S, FLASH_KV, FLASH_G, FLASH_HD = 2, 2048, 4, 8, 64   # tinyllama's heads
+FLASH_TOL = 1e-4         # dq, dk, dv within this share of each one's largest magnitude
+TRAIN_CLI = ("--arch", LM_ARCH, "--smoke", "--steps", "12", "--batch", "4", "--seq", "32",
+             "--save-every", "5", "--log-every", "1")
+TRAIN_CLI_FAIL_AT = 7
+TRAIN_CLI_ATOL = 1e-2    # tests/test_train_features.py's crash-resume rule
+# a command that exits 3 the first time (leaving its marker file), then 0
+FAILS_ONCE = ("import pathlib, sys; p = pathlib.Path(sys.argv[1]); "
+              "sys.exit(0 if p.exists() else (p.touch() or 3))")
+
+
+def _bits(t):
+    """A tensor's bits, comparable with torch.equal (bf16 as int16)."""
+    import torch
+
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _split(batch: dict, mb: int) -> dict:
+    return {k: a.reshape(mb, a.shape[0] // mb, *a.shape[1:]) for k, a in batch.items()}
+
+
+def _leaf_max_err(got, want) -> float:
+    """The largest over leaves of max |got - want| / max |want|."""
+    from repro_torch.tree import leaves
+
+    worst = 0.0
+    for a, b in zip(leaves(got), leaves(want), strict=True):
+        worst = max(worst, float((a.float() - b.float()).abs().max())
+                    / max(float(b.float().abs().max()), 1e-30))
+    return worst
+
+
+def flash_backward_check(dev) -> dict:
+    """The flash backward alone at the model's attention shape (B 2, S 2048,
+    32 / 4 heads, hd 64, f32, chunks of 512: the causal chunk skipping runs)
+    against autograd through a plain causal softmax attention that
+    materialises its (B, H, S, S) scores."""
+    import torch
+
+    from repro_torch.models import attention as attn
+
+    b, s, kv, g, hd = FLASH_B, FLASH_S, FLASH_KV, FLASH_G, FLASH_HD
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev) for shape in (
+        (b, s, kv * g, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, kv * g, hd)))
+    for t in (q, k, v):
+        t.requires_grad_()
+    _sync()
+    t = _now()
+    out = attn.flash_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    _sync()
+    flash_s = _now() - t
+    # head h reads KV head h // g, as the (KV, G) reshape of the flash form
+    ke, ve = (x.repeat_interleave(g, dim=2) for x in (k, v))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, ke) * hd ** -0.5
+    causal = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+    probs = torch.softmax(scores.masked_fill(~causal, -torch.inf), dim=-1)
+    plain = torch.einsum("bhqk,bkhd->bqhd", probs, ve)
+    want = torch.autograd.grad(plain, (q, k, v), do)
+    errs = {name: float((a - w).abs().max() / w.abs().max())
+            for name, a, w in zip(("dq", "dk", "dv"), grads, want)}
+    out_err = float((out - plain).detach().abs().max() / plain.detach().abs().max())
+    check(all(e <= FLASH_TOL for e in errs.values()) and out_err <= FLASH_TOL,
+          f"train: the flash backward against plain autograd: {errs}, out {out_err}")
+    return {"shape": [b, s, kv * g, kv, hd], "chunks": 512, "rel_err": errs,
+            "out_rel_err": out_err, "flash_fwd_bwd_s": flash_s}
+
+
+def grads_card_vs_cpu(lm: dict, batch: dict) -> dict:
+    """loss_fn's loss and gradients on the card against the CPU, with the
+    f32 weights of `lm_weights` (random init), B 1 and TRAIN_GRAD_TOKENS
+    tokens of the first training batch."""
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    cfg, params32 = lm["cfg"], lm["params32"]
+    one = {k: a[:1, :TRAIN_GRAD_TOKENS] for k, a in batch.items()}
+    compute = make_train_step(cfg, Runtime(), TrainConfig()).compute_grads
+    t0 = _now()
+    g_card, m_card = compute(params32, one)
+    _sync()
+    card_s = _now() - t0
+    t = _now()
+    g_card = _tree_map(lambda t: t.cpu(), g_card)
+    params_cpu = _tree_map(lambda t: t.cpu(), params32)
+    copy_s = _now() - t
+    t = _now()
+    g_cpu, m_cpu = compute(params_cpu, {k: a.cpu() for k, a in one.items()})
+    cpu_s = _now() - t
+    del params_cpu
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    grad_err = _leaf_max_err(g_card, g_cpu)
+    check(loss_rel <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL,
+          f"train: card against CPU: loss {loss_rel}, gradients {grad_err}")
+    return {"tokens": TRAIN_GRAD_TOKENS, "loss": float(m_cpu["loss"]), "loss_rel_err": loss_rel,
+            "grad_max_rel_err": grad_err, "card_s": card_s, "copy_s": copy_s, "cpu_s": cpu_s,
+            "seconds": _now() - t0}
+
+
+def compression_check(state: dict, batch: dict, cfg, rt, tc) -> dict:
+    """One step with grad_compression, from `state` (a copy; it is
+    changed): the gradients, their compression from a nonzero error buffer
+    (the first compression's), and the AdamW update, as the train step runs
+    them; new_err must equal (g + e) - deq bit for bit, deq being the int8
+    values times the leaf's scale. Then the train step itself with
+    compression: its loss, grad norm and error buffers finite."""
+    import torch
+
+    from repro_torch.optim.adamw import adamw_update, cosine_schedule
+    from repro_torch.train.compression import compress_decompress_grads, compression_init
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves
+
+    t = _now()
+    step_c = make_train_step(cfg, rt, tc)
+    grads, _ = step_c.compute_grads(state["params"], batch)
+    _, err = compress_decompress_grads(grads, compression_init(state["params"]))
+    deq, new_err = compress_decompress_grads(grads, err)
+    exact = True
+    for g, e, d, ne in zip(leaves(grads), leaves(err), leaves(deq), leaves(new_err)):
+        g32 = g.float() + e
+        scale = torch.clamp_min(g32.abs().max(), 1e-12) / 127.0
+        q = torch.clamp(torch.round(g32 / scale), -127, 127)
+        deq32 = q * scale
+        exact &= bool(torch.equal(ne, g32 - deq32)) and bool(torch.equal(d, deq32.to(d.dtype)))
+    check(exact, "train: compression's new_err != (g + e) - deq")
+    _, opt, om = adamw_update(state["params"], deq, state["opt"],
+                              cosine_schedule(tc.lr, tc.warmup_steps, tc.total_steps))
+    state["opt"] = opt
+    del grads, deq
+    state["err"] = new_err
+    state, m = step_c(state, batch)
+    err_max = max(float(e.abs().max()) for e in leaves(state["err"]))
+    ok = all(np.isfinite(float(m[k])) for k in ("loss", "grad_norm")) and np.isfinite(err_max)
+    check(ok, f"train: the compressed step: {m}, err {err_max}")
+    return {"exact": exact, "grad_norm": float(om["grad_norm"]),
+            "step_loss": float(m["loss"]), "step_grad_norm": float(m["grad_norm"]),
+            "err_abs_max": err_max, "seconds": _now() - t}
+
+
+def phase_train(lm: dict, dev) -> dict:
+    """Training at LM_ARCH's full width: bf16 parameters from
+    init_train_state (a torch.Generator seeded 0), f32 moments, the command
+    line's TrainConfig (lr 3e-4, warm-up TRAIN_STEPS // 10, a cosine over
+    the run), TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens from
+    make_batch_iterator(seed 0, start_step TRAIN_START). The first step's
+    batch also goes through one step with microbatches=2 from a copy of the
+    state, and that copy then through the compression check. Then the
+    reference's loss rule, loss_fn's gradients card against CPU
+    (`grads_card_vs_cpu`), the flash backward alone (`flash_backward_check`)
+    and a checkpoint round trip (AsyncCheckpointer, restore_checkpoint:
+    bitwise). Plain torch: no kernel of the repo launches, which the counts
+    show. Returns the trained bf16 parameters; drops the moments."""
+    import torch
+
+    from repro_torch.checkpoint.store import AsyncCheckpointer, restore_checkpoint
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.kernels import lp_distance as kd
+    from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    t0 = _now()
+    cfg, rt = lm["cfg"], Runtime()
+    tc = TrainConfig(lr=3e-4, warmup_steps=max(TRAIN_STEPS // 10, 1), total_steps=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, rt, tc, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    step_fn = make_train_step(cfg, rt, tc)
+    batches = make_batch_iterator(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, start_step=TRAIN_START,
+                                  device=dev)
+    first_step, batch = next(batches)
+    first_batch = batch
+    _sync()
+    setup_s = _now() - t0
+    kd.reset_launch_counts()
+
+    t = _now()
+    copy = _tree_map(lambda x: x.clone(), state)
+    copy, _ = make_train_step(cfg, rt, replace(tc, microbatches=2))(copy, _split(batch, 2))
+    _sync()
+    mb_s = _now() - t
+
+    losses, gnorms, step_s = [], [], []
+    for i in range(TRAIN_STEPS):
+        t = _now()
+        state, m = step_fn(state, batch)
+        if i + 1 < TRAIN_STEPS:
+            _, batch_next = next(batches)      # made on the host while the card works
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_s.append(_now() - t)
+        if i == 0:
+            mb_err = max(float((a.float() - b.float()).abs().max())
+                         for a, b in zip(leaves(state["params"]), leaves(copy["params"])))
+            check(mb_err <= TRAIN_MB_ATOL, f"train: microbatches=2 against 1: params {mb_err}")
+            comp = compression_check(copy, batch, cfg, rt, replace(tc, grad_compression=True))
+            del copy
+        if i + 1 < TRAIN_STEPS:
+            batch = batch_next
+    launched = kd.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"train: a loss or grad norm not finite: {losses} {gnorms}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last5 < first5 - TRAIN_LOSS_DROP,
+          f"train: the mean of the last 5 losses {last5} not below the first 5's {first5} "
+          f"less {TRAIN_LOSS_DROP}: {losses}")
+    check(not any(launched.values()), f"train: kernels launched on a plain-torch path: {launched}")
+    med = float(np.median(step_s))
+
+    ck_dir = Path(__file__).resolve().parent / "build" / "smoke_train_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    ck = AsyncCheckpointer(ck_dir)
+    t = _now()
+    ck.save(TRAIN_STEPS - 1, state)
+    snapshot_s = _now() - t
+    # beside the checkpoint's writer thread: the gradients and the flash backward
+    card_cpu = grads_card_vs_cpu(lm, first_batch)
+    flash = flash_backward_check(dev)
+    ck.wait()
+    save_s = _now() - t
+    nbytes = sum(f.stat().st_size for f in ck_dir.rglob("*") if f.is_file())
+    t = _now()
+    restored, step = restore_checkpoint(ck_dir, state, dev)
+    _sync()
+    restore_s = _now() - t
+    bitwise = step == TRAIN_STEPS - 1 and all(
+        torch.equal(_bits(a), _bits(b)) for a, b in zip(leaves(restored), leaves(state),
+                                                      strict=True))
+    check(bitwise, "train: the restored checkpoint differs from the state")
+    del restored
+    shutil.rmtree(ck_dir)
+
+    emit({"phase": "train", "seconds": _now() - t0, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "first_pipeline_step": first_step, "lr": tc.lr, "warmup": tc.warmup_steps,
+          "setup_s": setup_s, "losses_first5": losses[:5], "losses_last5": losses[-5:],
+          "losses": losses, "mean_first5": first5, "mean_last5": last5,
+          "grad_norms": gnorms, "step_s_median": med, "step_s_max": max(step_s),
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med, "peak_device_mib": peak,
+          "microbatches_2": {"max_abs_param_diff": mb_err, "seconds": mb_s},
+          "compression": comp, "card_vs_cpu": card_cpu, "flash_backward": flash,
+          "checkpoint": {"bytes": nbytes, "snapshot_s": snapshot_s, "save_s": save_s,
+                         "restore_s": restore_s, "bitwise": bitwise},
+          "launches": launched})
+    params = state["params"]
+    del state
+    return params
+
+
+def start_train_cli() -> dict:
+    """The training command line (TRAIN_CLI, on the card) three ways on a
+    thread: uninterrupted, and beside it a run that crashes at step
+    TRAIN_CLI_FAIL_AT and then its resumption from the same checkpoint
+    directory; then the supervisor around FAILS_ONCE. Started at the start
+    of the LM paths; `phase_train_cli` reads it."""
+    import threading
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    work = root / "build" / "smoke_train_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    base = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI]
+    runs: dict = {}
+    procs: list = []
+    stop = threading.Event()
+
+    def run(name, cmd):
+        if stop.is_set():
+            raise RuntimeError(f"stopped before {name}")
+        t = _now()
+        p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+        procs.append(p)
+        out, err = p.communicate(timeout=600)
+        runs[name] = {"rc": p.returncode, "out": out, "err": err, "s": _now() - t}
+
+    def crash_then_resume():
+        run("crash", base + ["--ckpt-dir", str(work / "ft"),
+                             "--fail-at-step", str(TRAIN_CLI_FAIL_AT)])
+        run("resumed", base + ["--ckpt-dir", str(work / "ft"), "--metrics-out",
+                               str(work / "ft.json")])
+
+    def all_runs():
+        try:
+            with ThreadPoolExecutor(2) as pool:
+                futures = [pool.submit(run, "uninterrupted", base + [
+                    "--ckpt-dir", str(work / "ref"), "--metrics-out", str(work / "ref.json")]),
+                    pool.submit(crash_then_resume)]
+                for f in futures:
+                    f.result()
+            run("supervisor", [sys.executable, "-m", "repro_torch.launch.supervisor",
+                               "--retries", "2", "--backoff", "0.1", "--", sys.executable,
+                               "-c", FAILS_ONCE, str(work / "marker")])
+        except Exception as e:  # read by phase_train_cli
+            runs["error"] = repr(e)
+
+    thread = threading.Thread(target=all_runs)
+    thread.start()
+    return {"thread": thread, "runs": runs, "procs": procs, "stop": stop, "work": work,
+            "t0": _now()}
+
+
+def phase_train_cli(cli: dict) -> None:
+    """Reads `start_train_cli`'s runs: the uninterrupted run exits 0, the
+    crashing one 42 at TRAIN_CLI_FAIL_AT, the resumed one 0 with `resumed
+    from step 4` and its last 3 losses within TRAIN_CLI_ATOL of the
+    uninterrupted run's; the supervisor restarts FAILS_ONCE once and exits
+    0."""
+    t0 = _now()
+    cli["thread"].join(timeout=600)
+    runs, work = cli["runs"], cli["work"]
+    check(not cli["thread"].is_alive() and "error" not in runs, f"train_cli: {runs.get('error')}")
+    for name, rc in (("uninterrupted", 0), ("crash", 42), ("resumed", 0), ("supervisor", 0)):
+        r = runs[name]
+        check(r["rc"] == rc, f"train_cli {name} exited {r['rc']}: {r['out'][-2000:]} "
+                             f"{r['err'][-2000:]}")
+    check(f"FAULT-INJECTION: crashing at step {TRAIN_CLI_FAIL_AT}" in runs["crash"]["out"],
+          "train_cli: the crash run did not inject its fault")
+    check("resumed from step 4" in runs["resumed"]["out"], "train_cli: no `resumed from step 4`")
+    ref = json.loads((work / "ref.json").read_text())["losses"]
+    ft = json.loads((work / "ft.json").read_text())["losses"]
+    diff = float(np.abs(np.asarray(ft[-3:]) - np.asarray(ref[-3:])).max())
+    check(len(ref) == 12 and len(ft) == 7 and diff <= TRAIN_CLI_ATOL,
+          f"train_cli: resumed losses {ft} against {ref}")
+    sup = runs["supervisor"]["out"]
+    check("exit code 3" in sup and "success after 1 restarts" in sup,
+          f"train_cli: the supervisor did not restart once: {sup}")
+    shutil.rmtree(work)
+    emit({"phase": "train_cli", "seconds": _now() - t0, "beside_s": _now() - cli["t0"],
+          "run_s": {name: r["s"] for name, r in runs.items()},
+          "losses_uninterrupted": ref, "losses_resumed": ft, "max_abs_diff_last3": diff,
+          "resumed_line": next(ln for ln in runs["resumed"]["out"].splitlines()
+                               if ln.startswith("resumed")),
+          "supervisor": sup.splitlines()})
+
+
 LM_PATHS_FLAG = "--lm-paths"
 LM_PATHS_TIMEOUT = 900
 
 
 def lm_paths(dev) -> None:
-    """The LM-side paths: the LM command line (beside them), the weights,
-    phases `knn_store`, `lm` and `knn_lm`. `chip_smoke.py --lm-paths` runs
-    them in a second process beside the retrieval phases (`start_lm_paths`),
-    so their seconds and rates share the card and the host with those."""
+    """The LM-side paths: the LM's serving and training command lines
+    (beside them), the weights, phases `train`, `knn_store` (on the trained
+    weights), `lm` (on the random ones), `knn_lm` (trained) and
+    `train_cli`. `chip_smoke.py --lm-paths` runs them in a second process
+    beside the retrieval phases (`start_lm_paths`), so their seconds and
+    rates share the card and the host with those."""
     cli = start_lm_cli()
+    train_cli = start_train_cli()
     try:
         lm = lm_weights(dev)
-        store = phase_knn_store(lm, dev)
+        trained = phase_train(lm, dev)
+        store = phase_knn_store(lm, trained, dev)
         phase_lm(lm, cli, dev)
-        phase_knn_lm(lm, store, dev)
+        phase_knn_lm(lm, trained, store, dev)
+        phase_train_cli(train_cli)
     finally:
-        if cli.poll() is None:
-            cli.kill()
-            cli.communicate()
+        train_cli["stop"].set()
+        for proc in (cli, *train_cli["procs"]):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        train_cli["thread"].join(timeout=60)
 
 
 def start_lm_paths() -> subprocess.Popen:
@@ -2626,12 +3004,12 @@ def finish_lm_paths(proc) -> tuple[dict, list]:
     proc.out.seek(0)
     proc.err.seek(0)
     lines, err = proc.out.read().splitlines(), proc.err.read()
-    check(rc == 0, f"the LM paths exited {rc}: {err[-4000:]}")
     knn = None
     for ln in lines:
         print(ln, flush=True)
         if ln.startswith('{"phase": "knn_lm"'):
             knn = json.loads(ln)
+    check(rc == 0, f"the LM paths exited {rc}: {err[-4000:]}")
     check(knn is not None, "the LM paths printed no knn_lm phase")
     return knn["launches"], knn["kernel_rows"]
 
@@ -2786,9 +3164,11 @@ def main() -> int:
         return run_phases(dev, t_start, _build, procs)
     finally:
         for proc in procs:
-            if proc.poll() is None:
+            try:    # the group: what the process started may outlive it
                 os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
+            except ProcessLookupError:
+                pass
+            proc.wait()
 
 
 def run_phases(dev, t_start: float, _build, procs: list) -> int:

@@ -32,14 +32,23 @@ The port of `repro` (JAX + Pallas for the TPU), mirroring its layout:
                          knn_lm (kNN-LM over a U-HNSW datastore)
   repro_torch.configs  — the ten architecture configs, field for field
   repro_torch.dist     — Runtime on one card (the mesh is not ported)
-  repro_torch.models   — parameter specs, GQA attention, the dense FFN,
+  repro_torch.models   — parameter specs, GQA attention (the flash forward
+                         and its backward), the dense FFN, the loss,
                          prefill and decode (gqa+ffn blocks)
+  repro_torch.optim    — adamw: the reference's AdamW, in place
+  repro_torch.train    — step (TrainConfig, make_train_step: microbatches,
+                         int8 gradient compression), compression and
+                         monitor (StepWatchdog, HeartbeatMonitor)
+  repro_torch.checkpoint — store: checkpoints in the reference's on-disk
+                         format, AsyncCheckpointer
   repro_torch.serve    — ServeEngine: batched prefill + decode
-  repro_torch.data     — the synthetic token pipeline
+  repro_torch.data     — the synthetic token pipeline and its iterator
   repro_torch.launch   — serve: the LM's and the retrieval tier's command
-                         line
-  repro_torch.convert  — carries a reference index or LM's weights into
-                         the port
+                         line; train: the LM's training command line;
+                         supervisor: restart on failure
+  repro_torch.tree     — leaves / tree_map over nested dicts and lists
+  repro_torch.convert  — carries a reference index, LM's weights or
+                         training state into the port
 
 Entry points run on "cuda" unless the caller passes device="cpu"; on CPU
 tensors the kernels' plain versions run instead. It imports neither jax

@@ -6,7 +6,9 @@ fields, handed over as numpy arrays, into the port's `HNSWGraph` on a
 chosen device, so that both packages can search the same index. The LM
 scaffold does have weights: `lm_params_from_reference` turns the
 reference's parameter tree, as numpy arrays, into the port's, so that both
-packages run the same model. It imports nothing of `repro`.
+packages run the same model, and `train_state_from_reference` does the
+same for a whole training state (parameters, AdamW moments and step, and
+the compression's error buffers). It imports nothing of `repro`.
 """
 
 from __future__ import annotations
@@ -69,3 +71,19 @@ def lm_params_from_reference(tree, device="cuda", dtype=None):
     if isinstance(tree, (list, tuple)):
         return [lm_params_from_reference(v, device, dtype) for v in tree]
     return _leaf_to_torch(tree, device, dtype)
+
+
+def train_state_from_reference(state_np, device="cuda", dtype=None) -> dict:
+    """The port's training state from the reference's, leaf for leaf.
+
+    state_np: {"params", "opt": {"m", "v", "step"}, ["err"]} with numpy
+    leaves (bf16 ones as numpy's bfloat16). dtype casts the parameters'
+    floating-point leaves only; the moments and error buffers keep f32 and
+    the step its int32 (a 0-d tensor)."""
+    out = {"params": lm_params_from_reference(state_np["params"], device, dtype),
+           "opt": {"m": lm_params_from_reference(state_np["opt"]["m"], device),
+                   "v": lm_params_from_reference(state_np["opt"]["v"], device),
+                   "step": _leaf_to_torch(state_np["opt"]["step"], device, None)}}
+    if "err" in state_np:
+        out["err"] = lm_params_from_reference(state_np["err"], device)
+    return out

@@ -10,7 +10,8 @@ stream (not uniform noise: a learnable LM target) with
     batch (host_index / host_count);
   * stub frontends: frame/patch embeddings for the audio/vlm architectures.
 
-`make_batch_iterator` comes with training (ROADMAP queue 1 item 11(a)).
+`make_batch_iterator` yields (step, batch) from a start step, this
+process's shard of each global batch.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import process_count, process_index
 
 
 @dataclass
@@ -74,3 +76,15 @@ class SyntheticTokenPipeline:
         else:
             batch["tokens"] = torch.from_numpy(tokens[:, :-1].copy()).to(self.device)
         return batch
+
+
+def make_batch_iterator(cfg, global_batch, seq_len, seed=0, start_step=0, device="cuda"):
+    """(step, batch) from start_step on, without end: this process's slice
+    of each global batch (host index and count from torch.distributed when
+    it is initialised, else 0 and 1)."""
+    pipe = SyntheticTokenPipeline(cfg, global_batch, seq_len, seed, host_index=process_index(),
+                                  host_count=process_count(), device=device)
+    step = start_step
+    while True:
+        yield step, pipe.batch(step)
+        step += 1

@@ -2,7 +2,13 @@
 
   sharding — Runtime (mesh + parallelism flags) and `constrain`, the
              identity on one card; the mesh itself waits for ROADMAP
-             item 11(c)
+             item 11(c); process_index / process_count from
+             torch.distributed
 """
 
-from repro_torch.dist.sharding import Runtime, constrain  # noqa: F401
+from repro_torch.dist.sharding import (  # noqa: F401
+    Runtime,
+    constrain,
+    process_count,
+    process_index,
+)

@@ -7,6 +7,8 @@ the port runs on one card, where every such mapping is the identity. A
 mesh, explicit tensor parallelism, a sequence-sharded activation, ZeRO-3
 over all axes: `logical_to_spec`, `dist/tp.py`) wait for ROADMAP queue 1
 item 11(c), and asking for one raises `NotImplementedError` naming it.
+`process_index` / `process_count` (`jax.process_index` / `process_count`)
+read `torch.distributed` where a process group is up.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ class Runtime:
     """Mesh + parallelism mode flags, threaded through every model call.
 
     The reference's fields and defaults. mesh=None is one card, the only
-    layout ported; rules, remat and moe_decode_gather are taken and change
-    nothing on it (remat matters only to a backward pass, and the MoE
-    decode path is not ported yet).
+    layout ported. remat recomputes each layer's activations in the
+    backward (`models.model._backbone`); rules and moe_decode_gather are
+    taken and change nothing on one card (the MoE decode path is not
+    ported yet).
     """
 
     mesh: Any = None
@@ -65,3 +68,17 @@ def constrain(x, rt: Runtime, logical: tuple[str | None, ...]):
     """The reference's activation pin; the identity on one card."""
     del rt, logical
     return x
+
+
+def process_index() -> int:
+    """This process's rank in the initialised `torch.distributed` group, else 0."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The initialised `torch.distributed` group's size, else 1."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1

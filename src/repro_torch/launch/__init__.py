@@ -1,2 +1,3 @@
-"""Entry points (counterpart of `repro.launch`): `serve`, the retrieval
-tier's command line."""
+"""Entry points (counterpart of `repro.launch`): `serve`, the LM's and the
+retrieval tier's command line; `train`, the LM's training command line with
+checkpoint / restart; `supervisor`, restart on failure."""

@@ -1,4 +1,4 @@
-"""LM model zoo, serving half: composable blocks in plain PyTorch.
+"""LM model zoo: composable blocks in plain PyTorch, for training and serving.
 
 Counterpart of `repro.models`. Block taxonomy (each layer = sequence mixer +
 channel mixer):
@@ -7,8 +7,10 @@ channel mixer):
 
 Layers stack in run-length-encoded segments of identical layer kinds, with
 the reference's parameter tree (params.layer_plan); a Python loop takes the
-place of `lax.scan`. Only `gqa+ffn` runs so far: the other kinds and the
-loss wait for ROADMAP queue 1 items 11(b) and 11(a).
+place of `lax.scan`. `loss_fn` gives the training loss (chunked
+cross-entropy, the MTP auxiliary), and attention carries the flash
+backward. Only `gqa+ffn` runs so far: the other kinds wait for ROADMAP
+queue 1 item 11(b).
 """
 
 from repro_torch.models.model import (  # noqa: F401
@@ -16,6 +18,7 @@ from repro_torch.models.model import (  # noqa: F401
     forward_train,
     init_cache,
     init_params,
+    loss_fn,
     prefill,
 )
 from repro_torch.models.params import count_params, param_specs  # noqa: F401

@@ -1,22 +1,29 @@
-"""Attention mixers: GQA, prefill and decode paths (plain PyTorch).
+"""Attention mixers: GQA, prefill, training and decode paths (plain PyTorch).
 
-Counterpart of `repro.models.attention`'s GQA part. Prefill attention is
-the reference's flash formulation, forward only: a loop over query chunks
+Counterpart of `repro.models.attention`'s GQA part. Prefill and training
+attention is the reference's flash formulation: a loop over query chunks
 with an inner loop over only the causally reachable (and, with a window,
 window-reachable) KV chunks, carrying online-softmax statistics in f32. It
 keeps peak memory at one (Tq, Tk) score tile per head group.
+
+The backward is the reference's `_flash_bwd_impl`, attached to the forward
+by `_FlashCore`, a `torch.autograd.Function` (the reference's `custom_vjp`
+`_flash_core`): a loop over KV chunks accumulating dk and dv, an inner loop
+over only the reachable query chunks, dq accumulated across them. It saves
+q, k, v, the output and the log-sum-exp, never a score tile. Under
+`torch.no_grad()` the same forward runs and nothing is kept.
 
 Decode attends one query position against the whole KV cache.
 
 Precision follows the reference: the score and PV products take their
 inputs at the activations' dtype and accumulate and return f32 (the
 reference's `preferred_element_type=jnp.float32`). A bf16 input is exact in
-f32, so both products run on f32 copies; on the card they need TF32 off,
-which is torch's default for matrix products.
+f32, so the products run on f32 copies (f64 inputs stay f64, which lets
+`torch.autograd.gradcheck` hold the backward); on the card they need TF32
+off, which is torch's default for matrix products.
 
-The reference's MLA mixer (`mla_forward`, `mla_decode`) and the flash
-backward (a `torch.autograd.Function` here) wait for later slices
-(ROADMAP queue 1 items 11(b) and 11(a)).
+The reference's MLA mixer (`mla_forward`, `mla_decode`) waits for ROADMAP
+queue 1 item 11(b).
 """
 
 from __future__ import annotations
@@ -50,7 +57,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
-    return t if t.dtype == torch.float32 else t.float()
+    """t widened to f32 (an f64 tensor stays f64)."""
+    return t if t.dtype in (torch.float32, torch.float64) else t.float()
 
 
 def _chunk_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int | None) -> torch.Tensor:
@@ -73,15 +81,16 @@ def _flash_fwd(q, k, v, window, chunk_q: int, chunk_k: int, scale: float):
     kr = k.reshape(b, nk, chunk_k, kv, hd)
     vr = v.reshape(b, nk, chunk_k, kv, vd)
     ar = torch.arange(max(chunk_q, chunk_k), device=q.device)
+    acc_dtype = torch.promote_types(q.dtype, torch.float32)
     outs, lses = [], []
     for i in range(nq):
         qc = _f32(qr[:, i])
         q_pos = i * chunk_q + ar[:chunk_q]
         j_hi = (i + 1) * chunk_q // chunk_k
         j_lo = 0 if window is None else max(i * chunk_q - (window - 1), 0) // chunk_k
-        acc = torch.zeros((b, chunk_q, kv, g, vd), dtype=torch.float32, device=q.device)
-        m = torch.full((b, chunk_q, kv, g), _NEG, dtype=torch.float32, device=q.device)
-        l = torch.zeros((b, chunk_q, kv, g), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, chunk_q, kv, g, vd), dtype=acc_dtype, device=q.device)
+        m = torch.full((b, chunk_q, kv, g), _NEG, dtype=acc_dtype, device=q.device)
+        l = torch.zeros((b, chunk_q, kv, g), dtype=acc_dtype, device=q.device)
         for j in range(j_lo, j_hi):
             kc, vc = kr[:, j], vr[:, j]
             k_pos = j * chunk_k + ar[:chunk_k]
@@ -103,10 +112,82 @@ def _flash_fwd(q, k, v, window, chunk_q: int, chunk_k: int, scale: float):
     return out, lse
 
 
+def _flash_bwd(q, k, v, out, lse, do, window, chunk_q: int, chunk_k: int, scale: float):
+    """(dq, dk, dv) in q's, k's and v's dtypes, the reference's
+    `_flash_bwd_impl`. out and do are (B, S, H, vd), lse (B, S, KV, G).
+    Each KV chunk j visits the query chunks i_lo..i_hi that reach it; the
+    probabilities are recomputed from lse, and every product runs in f32."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    vd = v.shape[-1]
+    g = h // kv
+    nq, nk = s // chunk_q, s // chunk_k
+    qr = q.reshape(b, nq, chunk_q, kv, g, hd)
+    kr = k.reshape(b, nk, chunk_k, kv, hd)
+    vr = v.reshape(b, nk, chunk_k, kv, vd)
+    dor = do.reshape(b, nq, chunk_q, kv, g, vd)
+    lser = lse.reshape(b, nq, chunk_q, kv, g)
+    # delta_i = rowsum(do * out)
+    delta = torch.sum(_f32(do) * _f32(out), dim=-1)
+    deltar = delta.reshape(b, nq, chunk_q, kv, g)
+    ar = torch.arange(max(chunk_q, chunk_k), device=q.device)
+    acc_dtype = torch.promote_types(q.dtype, torch.float32)
+    dq = torch.zeros((b, nq, chunk_q, kv, g, hd), dtype=acc_dtype, device=q.device)
+    dks, dvs = [], []
+    for j in range(nk):
+        kc, vc = _f32(kr[:, j]), _f32(vr[:, j])
+        k_pos = j * chunk_k + ar[:chunk_k]
+        i_lo = (j * chunk_k) // chunk_q
+        i_hi = nq if window is None else min(((j + 1) * chunk_k - 1 + window - 1) // chunk_q + 1,
+                                              nq)
+        dk_j = torch.zeros((b, chunk_k, kv, hd), dtype=acc_dtype, device=q.device)
+        dv_j = torch.zeros((b, chunk_k, kv, vd), dtype=acc_dtype, device=q.device)
+        for i in range(i_lo, i_hi):
+            qc, doc = _f32(qr[:, i]), _f32(dor[:, i])
+            q_pos = i * chunk_q + ar[:chunk_q]
+            scores = torch.einsum("bqkgd,btkd->bqkgt", qc, kc) * scale
+            mask = _chunk_mask(q_pos, k_pos, window)
+            p = torch.where(mask[None, :, None, None, :],
+                            torch.exp(scores - lser[:, i][..., None]), 0.0)
+            dv_j = dv_j + torch.einsum("bqkgt,bqkgd->btkd", p, doc)
+            dp = torch.einsum("bqkgd,btkd->bqkgt", doc, vc)
+            ds = p * (dp - deltar[:, i][..., None]) * scale
+            dq[:, i] += torch.einsum("bqkgt,btkd->bqkgd", ds, kc)
+            dk_j = dk_j + torch.einsum("bqkgt,bqkgd->btkd", ds, qc)
+        dks.append(dk_j)
+        dvs.append(dv_j)
+    dq = dq.reshape(b, s, h, hd).to(q.dtype)
+    dk = torch.stack(dks, dim=1).reshape(b, s, kv, hd).to(k.dtype)
+    dv = torch.stack(dvs, dim=1).reshape(b, s, kv, vd).to(v.dtype)
+    return dq, dk, dv
+
+
+class _FlashCore(torch.autograd.Function):
+    """The flash forward with the flash backward as its gradient: (q, k, v)
+    -> out (B, S, KV, G, vd), the reference's `_flash_core`. Saves q, k, v,
+    out and lse; the window, chunks and scale are constants."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, chunk_q: int, chunk_k: int, scale: float):
+        out, lse = _flash_fwd(q, k, v, window, chunk_q, chunk_k, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.consts = (window, chunk_q, chunk_k, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        b, s, kv, grp, vd = out.shape
+        dq, dk, dv = _flash_bwd(q, k, v, out.reshape(b, s, kv * grp, vd), lse,
+                                g_out.reshape(b, s, kv * grp, vd), *ctx.consts)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int | None = None, chunk_q: int = 512, chunk_k: int = 512,
                     scale: float | None = None) -> torch.Tensor:
-    """Causal (optionally windowed) flash attention, forward.
+    """Causal (optionally windowed) flash attention (`_FlashCore`: the flash
+    backward is its gradient).
 
     q (B, S, H, hd), k (B, S, KV, hd), v (B, S, KV, vd) -> (B, S, H, vd) in
     q's dtype. Chunks of min(512, S); S must divide by them, as the
@@ -119,8 +200,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if s % chunk_q or s % chunk_k:
         raise ValueError(f"sequence length {s} does not divide by the chunks "
                          f"({chunk_q}, {chunk_k})")
-    out, _ = _flash_fwd(q, k, v, window, chunk_q, chunk_k, scale)
-    return out.reshape(b, s, h, vd)
+    return _FlashCore.apply(q, k, v, window, chunk_q, chunk_k, scale).reshape(b, s, h, vd)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,

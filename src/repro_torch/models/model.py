@@ -1,21 +1,27 @@
-"""Model assembly, serving half: embedding -> block segments -> prefill /
-decode (plain PyTorch).
+"""Model assembly: embedding -> block segments -> loss / prefill / decode
+(plain PyTorch).
 
 Counterpart of `repro.models.model`. The reference stacks each run of
 identical layers (`params.layer_plan`) on a leading 'layers' axis and scans
 it with `lax.scan`; here each segment's stacked leaves are sliced layer by
 layer in a Python loop, so the parameter tree keeps the reference's shape
-and carries across leaf for leaf (`repro_torch.convert`).
+and carries across leaf for leaf (`repro_torch.convert`). With
+`Runtime.remat`, each layer's body is recomputed in the backward
+(`torch.utils.checkpoint`, the reference's `jax.checkpoint`).
+
+Cross-entropy is computed in sequence chunks of LOSS_CHUNK positions against
+the head, so no more than one chunk's (B, C, V) logits exist at a time in
+the forward.
 
 Only `gqa+ffn` blocks run so far (the dense GQA family: six of the ten
 configs). Every other block kind raises `NotImplementedError` naming
-ROADMAP queue 1 item 11(b); the loss (`loss_fn`, `_chunked_xent`) comes
-with training, item 11(a).
+ROADMAP queue 1 item 11(b).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.sharding import Runtime, constrain
@@ -23,6 +29,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.params import ParamSpec, _map_specs, layer_plan
 
+LOSS_CHUNK = 1024
+MTP_WEIGHT = 0.3
 PORTED_KINDS = ("gqa+ffn",)
 KINDS_ITEM = "ROADMAP queue 1 item 11(b) (the other block kinds)"
 
@@ -98,16 +106,29 @@ def _backbone(params: dict, x, positions, cfg: ArchConfig, rt: Runtime,
     """Runs the segment stack. Returns (hidden, cache segments | None).
 
     With collect_cache, each segment's entries come stacked (R, B, S', ...)
-    with the sequence axis right-padded with zeros to S' = max(S, s_max)."""
+    with the sequence axis right-padded with zeros to S' = max(S, s_max).
+    With rt.remat (and no cache to collect), each layer's unit of blocks runs
+    under `checkpoint`: its activations are recomputed in the backward."""
     caches = []
     for (unit, repeats), seg in zip(layer_plan(cfg), params["segments"]):
         entries: list[dict | None] = [None] * len(unit)
+
+        def unit_body(h, r, unit=unit, seg=seg):
+            h = constrain(h, rt, ("batch", "seq_act", "embed_act"))
+            out = []
+            for kind, bp in zip(unit, seg["blocks"]):
+                h, entry = _apply_block(kind, _layer(bp, r), h, positions, cfg, rt)
+                out.append(entry)
+            return h, out
+
         for r in range(repeats):
-            x = constrain(x, rt, ("batch", "seq_act", "embed_act"))
-            for u, (kind, bp) in enumerate(zip(unit, seg["blocks"])):
-                x, entry = _apply_block(kind, _layer(bp, r), x, positions, cfg, rt)
-                if not collect_cache:
-                    continue
+            if rt.remat and not collect_cache:
+                x = checkpoint(lambda h, r=r: unit_body(h, r)[0], x, use_reentrant=False)
+                continue
+            x, unit_entries = unit_body(x, r)
+            if not collect_cache:
+                continue
+            for u, entry in enumerate(unit_entries):
                 if entries[u] is None:
                     entries[u] = {
                         key: t.new_zeros((repeats, t.shape[0], max(t.shape[1], s_max or 0),
@@ -125,8 +146,7 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 
 def forward_train(params: dict, batch: dict, cfg: ArchConfig, rt: Runtime) -> torch.Tensor:
-    """Full-sequence forward -> final hidden states (B, S, d) (forward
-    only: the training step comes with ROADMAP queue 1 item 11(a))."""
+    """Full-sequence forward -> final hidden states (B, S, d)."""
     x = embed_input(params, batch, cfg)
     x, _ = _backbone(params, x, _positions(x), cfg, rt)
     return attn.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -136,6 +156,60 @@ def _head_matrix(params: dict, cfg: ArchConfig) -> torch.Tensor:
     if cfg.tie_embeddings or "lm_head" not in params:
         return params["embed"].T
     return params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def _chunked_xent(hidden: torch.Tensor, labels: torch.Tensor, head: torch.Tensor,
+                  cfg: ArchConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy in f32, LOSS_CHUNK positions at a time.
+
+    Logits of padded vocabulary entries (head columns past cfg.vocab_size)
+    are -1e30, out of the partition function; labels < 0 are padding and
+    count neither in the sum nor in the mean's count."""
+    b, s, d = hidden.shape
+    v_real = cfg.vocab_size
+    chunk = min(LOSS_CHUNK, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} does not divide by the loss chunk {chunk}")
+    tot = hidden.new_zeros((), dtype=torch.float32)
+    cnt = hidden.new_zeros((), dtype=torch.float32)
+    for c in range(s // chunk):
+        h, y = hidden[:, c * chunk:(c + 1) * chunk], labels[:, c * chunk:(c + 1) * chunk]
+        logits = torch.einsum("bcd,dv->bcv", h, head).float()
+        v_pad = logits.shape[-1]
+        if v_pad > v_real:
+            pad_mask = torch.arange(v_pad, device=logits.device) >= v_real
+            logits = torch.where(pad_mask, -1e30, logits)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y.clamp_min(0).long()[..., None])[..., 0]
+        valid = (y >= 0).float()
+        tot = tot + ((lse - gold) * valid).sum()
+        cnt = cnt + valid.sum()
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig, rt: Runtime):
+    """Next-token LM loss (+ the multi-token-prediction auxiliary when
+    cfg.mtp_heads is set). Returns (loss, metrics) as 0-d f32 tensors.
+
+    batch: {"tokens" | "frames", "labels" (B, S) with -1 padding}; the
+    labels come shifted by the pipeline (labels[t] = tokens[t + 1])."""
+    hidden = forward_train(params, batch, cfg, rt)
+    labels = batch["labels"]
+    loss = _chunked_xent(hidden, labels, _head_matrix(params, cfg), cfg)
+    metrics = {"lm_loss": loss}
+    if cfg.mtp_heads:
+        # multi-token prediction: the labels shifted one step further
+        mtp_labels = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)], dim=1)
+        mtp_loss = _chunked_xent(hidden, mtp_labels, params["mtp_head"], cfg)
+        metrics["mtp_loss"] = mtp_loss
+        loss = loss + MTP_WEIGHT * mtp_loss
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

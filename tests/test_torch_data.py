@@ -11,8 +11,9 @@ import torch
 
 from repro.configs.base import get_arch as r_get_arch
 from repro.data.pipeline import SyntheticTokenPipeline as RPipeline
+from repro.data.pipeline import make_batch_iterator as r_make_batch_iterator
 from repro_torch.configs.base import get_arch
-from repro_torch.data.pipeline import SyntheticTokenPipeline
+from repro_torch.data.pipeline import SyntheticTokenPipeline, make_batch_iterator
 from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
@@ -48,6 +49,24 @@ def test_batches_equal_reference_bit_for_bit(arch, batch, seq, seed, step, host)
         assert ours[key].device.type == "cpu"
         assert str(ours[key].dtype).replace("torch.", "") == str(theirs[key].dtype)
         np.testing.assert_array_equal(bits(ours[key]), bits(theirs[key]))
+
+
+@pytest.mark.parametrize("start_step", [0, 3])
+def test_batch_iterator_equals_reference(start_step):
+    """make_batch_iterator from start_step: the same steps and batches as the
+    reference's (one process: host 0 of 1 on both sides)."""
+    ours = make_batch_iterator(get_arch("tinyllama_1_1b", smoke=True), 4, 16, seed=2,
+                               start_step=start_step, device="cpu")
+    theirs = r_make_batch_iterator(r_get_arch("tinyllama_1_1b", smoke=True), 4, 16, seed=2,
+                                   start_step=start_step)
+    for _ in range(3):
+        (step, batch), (r_step, r_batch) = next(ours), next(theirs)
+        assert step == r_step
+        assert batch.keys() == r_batch.keys()
+        for key in batch:
+            assert batch[key].device.type == "cpu"
+            np.testing.assert_array_equal(bits(batch[key]), bits(r_batch[key]))
+    assert step == start_step + 2
 
 
 def test_deterministic_per_step(cfg):

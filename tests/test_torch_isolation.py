@@ -62,5 +62,10 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
                  "repro_torch.models.params", "repro_torch.models.attention",
                  "repro_torch.models.ffn", "repro_torch.models.model", "repro_torch.serve",
                  "repro_torch.serve.engine", "repro_torch.data", "repro_torch.data.pipeline",
-                 "repro_torch.retrieval.knn_lm", "repro_torch.core.mlsh", "repro_torch.convert"):
+                 "repro_torch.retrieval.knn_lm", "repro_torch.core.mlsh", "repro_torch.convert",
+                 "repro_torch.tree", "repro_torch.optim", "repro_torch.optim.adamw",
+                 "repro_torch.train", "repro_torch.train.step",
+                 "repro_torch.train.compression", "repro_torch.train.monitor",
+                 "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+                 "repro_torch.launch.train", "repro_torch.launch.supervisor"):
         assert name in report["modules"]
