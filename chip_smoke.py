@@ -5,7 +5,8 @@
 
 The corpus: the synthetic Sun corpus at its published size (78,306 x 512,
 256 queries, seed 0); the LM: tinyllama_1_1b at its full width and depth
-(random weights from a seed, and the weights it trains). Fourteen paths,
+(random weights from a seed, and the weights it trains); and the other
+block kinds' four configs at their full widths. Fifteen paths,
 each driven with the kernels' launch counts set to 0 just before it and
 read just after:
 
@@ -74,20 +75,39 @@ read just after:
      tokens a step from make_batch_iterator (from pipeline step 2) through
      make_train_step, held to the reference's loss rule; one step with
      microbatches=2 against one with 1, one compressed step (error
-     feedback exact), loss_fn's gradients on the card against the CPU, the
-     flash backward alone against plain autograd at the model's attention
-     shape, and a checkpoint round trip (plain torch: no kernel of the
-     repo); the trained weights then feed `knn_store` and `knn_lm`;
+     feedback exact), loss_fn's gradients on the card against the CPU (the
+     first 2 layers), the flash backward alone against plain autograd at
+     the model's attention shape, and a checkpoint round trip of the
+     embedding's, head's, final norm's and first 2 layers' state (plain
+     torch: no kernel of the repo); the trained weights then feed
+     `knn_store` and `knn_lm`;
  14. the training command line (phase `train_cli`):
      `repro_torch.launch.train --smoke` uninterrupted, crashed at step 7
      (exit 42) and resumed from its checkpoint, the resumed losses against
      the uninterrupted ones, and `repro_torch.launch.supervisor` restarting
-     a command that fails once.
+     a command that fails once;
+ 15. the other block kinds (phase `lm_kinds`, one line per config), each
+     at its published width in f32: deepseek_v3_671b (MLA with the
+     absorbed decode, 256-expert top-8 MoE; its first 4 layers),
+     llama4_scout_17b_a16e (top-1 MoE with a shared expert; 2 of 48
+     layers), recurrentgemma_2b (RG-LRU and the local-attention ring, all
+     26 layers, a prefill longer than the 2,048 window) and mamba2_1_3b
+     (SSD, all 48 layers): prefill + decode against the full forward at
+     MoE capacity factor E / top_k (no route can drop), one prefill at the
+     published capacity whose dropped routes must equal a recount by rank,
+     loss_fn's gradients on the card against the CPU for the recurrent two,
+     and each served in bf16 at B 8 (decode ms a step); plain torch.
 
-Paths 10, 11, 13 and 14 (with the kNN-LM's datastore, phase `knn_store`)
-run in a second process, `chip_smoke.py --lm-paths`, started once the
-kernels are built and read before path 12: their seconds and rates share
-the card and the host with the retrieval phases beside them.
+Paths 5–8 run in a second process, `chip_smoke.py --sharded-paths`, on
+the same corpus, queries and truth made again, and paths 9, 10, 11, 13
+and 14 (with the kNN-LM's datastore, phase `knn_store`) in a third,
+`chip_smoke.py --lm-paths`; both start once the kernels are built and
+timed (after `kernels_rest`), beside paths 1–4 and 12, and are read at
+the end: their seconds and rates share the card and the host with the
+phases beside them. Path 15 runs in a fourth process, `chip_smoke.py
+--lm-kinds`, started first (it needs no kernel) beside the build; the
+LM paths start only once it has exited, so their models never share the
+card.
 
 It builds the CUDA kernels with nvcc (on a second thread, while the
 data, the brute-force truth and the host builder's graphs are made),
@@ -380,29 +400,39 @@ def phase_build(libs, t0: float):
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": report})
 
 
-def phase_data(dev):
+def corpus(dev):
+    """The Sun corpus and its queries on the card, and when each was ready:
+    (X, Q, generated, on the card)."""
     import torch
 
     from repro_torch.core.datasets import make_dataset
 
-    t0 = _now()
     ds = make_dataset("sun", n=N_SUN, n_queries=N_QUERIES, seed=0)
     t1 = _now()
     X = torch.from_numpy(ds.data).to(dev)
     Q = torch.from_numpy(ds.queries).to(dev)
-    t2 = _now()
+    return X, Q, t1, _now()
+
+
+def exact_truth(X, Q) -> dict:
+    """Brute-force top-10 at every p of the paths (and p = 1 for G1's beam)."""
+    from repro_torch.core.hnsw import exact_topk
+
+    return {p: exact_topk(X, Q, p, K)[0] for p in (*P_SCALAR, 1.0)}
+
+
+def phase_data(dev):
+    t0 = _now()
+    X, Q, t1, t2 = corpus(dev)
     emit({"phase": "data", "seconds": t2 - t0, "generate_seconds": t1 - t0,
-          "to_device_seconds": t2 - t1, "n": ds.n, "d": ds.d, "n_queries": N_QUERIES,
-          "corpus_mib": X.numel() * 4 / 2**20})
+          "to_device_seconds": t2 - t1, "n": X.shape[0], "d": X.shape[1],
+          "n_queries": N_QUERIES, "corpus_mib": X.numel() * 4 / 2**20})
     return X, Q
 
 
 def phase_truth(X, Q):
-    """Brute-force top-10 at every p of the paths (and p = 1 for G1's beam)."""
-    from repro_torch.core.hnsw import exact_topk
-
     t0 = _now()
-    truth = {p: exact_topk(X, Q, p, K)[0] for p in (*P_SCALAR, 1.0)}
+    truth = exact_truth(X, Q)
     emit({"phase": "truth", "seconds": _now() - t0})
     return truth
 
@@ -1454,11 +1484,11 @@ def check_candidates(idx, Q, base: float, label: str) -> dict:
     return {"real_per_row_min": int(real.sum(1).min()), "max_rel_err": r}
 
 
-def phase_sharded(X, Q, truth, mono_results):
+def phase_sharded(X, Q, truth):
     """ShardedUHNSW.build(X, 4 segments, m = 16, method="bulk") searched
     under each policy at SHARDED_P and the mixed batch, counted: recall@10,
     N_b with its probe and spill shares, N_p, hops, seconds per batch and
-    launches, beside the monolithic shared-pass index of the same run.
+    launches (the monolithic shared-pass index's are `search_bulk`'s).
     Checks: every policy's merged candidates are real, unique, ascending
     and at their exact base distances; the independent policy's ids with
     the kernels equal its ids with the plain versions at p = 0.5 and on the
@@ -1503,11 +1533,9 @@ def phase_sharded(X, Q, truth, mono_results):
                   f"sharded {name}: n_b != probe + spill at p={p}")
             per_p[str(p)] = {
                 "recall@10": recall(ids, tr),
-                "recall@10_monolithic": recall(mono_results[p][0], tr),
                 "mean_n_b": float(n_b.mean()),
                 "n_b_probe_share": float(torch.as_tensor(nb_pr).double().sum() / n_b.sum()),
                 "n_b_spill_share": float(torch.as_tensor(nb_sp).double().sum() / n_b.sum()),
-                "mean_n_b_monolithic": float(mono_results[p][2].n_b.float().mean()),
                 "mean_n_p": float(st.n_p.float().mean()),
                 "mean_hops": float(st.hops.float().mean()),
                 "batch_seconds": secs, "launches": l_p}
@@ -2285,22 +2313,28 @@ def start_lm_cli() -> subprocess.Popen:
                             text=True)
 
 
-def teacher_forcing(params, tokens, cfg, rt) -> dict:
-    """Prefill on the first LM_TF_PREFILL tokens, then one decode step per
-    later token, each step's log-probs against the full forward's at that
-    position: {"max_err", "argmax_agreement", "forward_s", "decode_s"}."""
+def teacher_forcing(params, tokens, cfg, rt, prefill: int = LM_TF_PREFILL,
+                    decoded: int | None = None) -> dict:
+    """Prefill on the first `prefill` tokens, then one decode step per later
+    token (`decoded` of them; all the rest when None), each step's log-probs
+    against the full forward's at that position; the forward runs over all
+    of `tokens`, which may reach past the decoded ones (causal: the extra
+    positions change nothing before them). {"max_err", "argmax_agreement",
+    "forward_s", "prefill_and_decode_s"}."""
     import torch
 
     from repro_torch.models import model
 
     v = cfg.vocab_size
-    s0, s = LM_TF_PREFILL, tokens.shape[1]
+    s0 = prefill
+    s = tokens.shape[1] if decoded is None else s0 + decoded
     head = model._head_matrix(params, cfg)
     with torch.no_grad():
         t = _now()
         hidden = model.forward_train(params, {"tokens": tokens}, cfg, rt)
         full = torch.log_softmax(
-            torch.einsum("bsd,dv->bsv", hidden[:, s0:], head)[..., :v].float(), dim=-1)
+            torch.einsum("bsd,dv->bsv", hidden[:, s0:s], head)[..., :v].float(), dim=-1)
+        del hidden
         t_fwd = _now() - t
         t = _now()
         _, cache = model.prefill(params, {"tokens": tokens[:, :s0]}, cfg, rt, s_max=s)
@@ -2609,7 +2643,9 @@ TRAIN_STEPS = 20         # the loss rule holds with a margin of 1.8 after 40 ste
 TRAIN_LOSS_DROP = 0.3    # tests/test_train_features.py:44: mean of the last 5 losses
 #                          below the mean of the first 5 less this
 TRAIN_MB_ATOL = 2e-2     # tests/test_train_features.py:67: microbatches, bf16 params
-TRAIN_GRAD_TOKENS = 64   # loss_fn's gradients on the card against the CPU, f32, B = 1
+TRAIN_GRAD_TOKENS = 64   # loss_fn's gradients on the card against the CPU, f32, B = 1,
+TRAIN_CUT_LAYERS = 2     # on the first 2 of the 22 layers; the checkpoint round trip
+#                          holds the state of the same layers, embedding and head
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4    # each gradient leaf within this share of its largest magnitude
 FLASH_B, FLASH_S, FLASH_KV, FLASH_G, FLASH_HD = 2, 2048, 4, 8, 64   # tinyllama's heads
@@ -2682,18 +2718,31 @@ def flash_backward_check(dev) -> dict:
             "out_rel_err": out_err, "flash_fwd_bwd_s": flash_s}
 
 
-def grads_card_vs_cpu(lm: dict, batch: dict) -> dict:
-    """loss_fn's loss and gradients on the card against the CPU, with the
-    f32 weights of `lm_weights` (random init), B 1 and TRAIN_GRAD_TOKENS
-    tokens of the first training batch."""
+def first_layers(params: dict, cfg, n: int):
+    """cfg cut to its first n layers, and params' leaves for them: the
+    embedding, head and norms whole, and the first segment's stacked layer
+    leaves sliced (views). The first segment must hold those n layers."""
+    from repro_torch.models.params import layer_plan
+
+    cut = cfg.with_overrides(n_layers=n)
+    (unit, r), = layer_plan(cut)
+    (unit0, r0) = layer_plan(cfg)[0]
+    check(unit == unit0 and r <= r0, f"the first {n} layers of {cfg.name} span segments")
+    sub = {k: v for k, v in params.items() if k != "segments"}
+    sub["segments"] = [{"blocks": _tree_map(lambda t: t[:r], params["segments"][0]["blocks"])}]
+    return cut, sub
+
+
+def grads_card_vs_cpu(cfg, params32: dict, batch: dict, label: str) -> dict:
+    """loss_fn's loss and gradients on the card against the CPU, f32 weights
+    and a batch on the card: the loss within TRAIN_LOSS_RTOL relative and
+    each gradient leaf within TRAIN_GRAD_TOL of its largest magnitude."""
     from repro_torch.dist.sharding import Runtime
     from repro_torch.train.step import TrainConfig, make_train_step
 
-    cfg, params32 = lm["cfg"], lm["params32"]
-    one = {k: a[:1, :TRAIN_GRAD_TOKENS] for k, a in batch.items()}
     compute = make_train_step(cfg, Runtime(), TrainConfig()).compute_grads
     t0 = _now()
-    g_card, m_card = compute(params32, one)
+    g_card, m_card = compute(params32, batch)
     _sync()
     card_s = _now() - t0
     t = _now()
@@ -2701,14 +2750,15 @@ def grads_card_vs_cpu(lm: dict, batch: dict) -> dict:
     params_cpu = _tree_map(lambda t: t.cpu(), params32)
     copy_s = _now() - t
     t = _now()
-    g_cpu, m_cpu = compute(params_cpu, {k: a.cpu() for k, a in one.items()})
+    g_cpu, m_cpu = compute(params_cpu, {k: a.cpu() for k, a in batch.items()})
     cpu_s = _now() - t
     del params_cpu
     loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
     grad_err = _leaf_max_err(g_card, g_cpu)
     check(loss_rel <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL,
-          f"train: card against CPU: loss {loss_rel}, gradients {grad_err}")
-    return {"tokens": TRAIN_GRAD_TOKENS, "loss": float(m_cpu["loss"]), "loss_rel_err": loss_rel,
+          f"{label}: card against CPU: loss {loss_rel}, gradients {grad_err}")
+    return {"layers": cfg.n_layers, "batch": list(batch["tokens"].shape),
+            "loss": float(m_cpu["loss"]), "loss_rel_err": loss_rel,
             "grad_max_rel_err": grad_err, "card_s": card_s, "copy_s": copy_s, "cpu_s": cpu_s,
             "seconds": _now() - t0}
 
@@ -2762,10 +2812,11 @@ def phase_train(lm: dict, dev) -> dict:
     make_batch_iterator(seed 0, start_step TRAIN_START). The first step's
     batch also goes through one step with microbatches=2 from a copy of the
     state, and that copy then through the compression check. Then the
-    reference's loss rule, loss_fn's gradients card against CPU
-    (`grads_card_vs_cpu`), the flash backward alone (`flash_backward_check`)
-    and a checkpoint round trip (AsyncCheckpointer, restore_checkpoint:
-    bitwise). Plain torch: no kernel of the repo launches, which the counts
+    reference's loss rule, loss_fn's gradients card against CPU on the
+    first TRAIN_CUT_LAYERS layers (`grads_card_vs_cpu`), the flash backward
+    alone (`flash_backward_check`) and a checkpoint round trip of the
+    embedding's, head's, final norm's and first TRAIN_CUT_LAYERS layers'
+    state (AsyncCheckpointer, restore_checkpoint: bitwise). Plain torch: no kernel of the repo launches, which the counts
     show. Returns the trained bf16 parameters; drops the moments."""
     import torch
 
@@ -2828,24 +2879,33 @@ def phase_train(lm: dict, dev) -> dict:
     ck_dir = Path(__file__).resolve().parent / "build" / "smoke_train_ckpt"
     shutil.rmtree(ck_dir, ignore_errors=True)
     ck = AsyncCheckpointer(ck_dir)
+    # the state of the embedding, head, final norm and first layers, at
+    # full width (views of the trained state)
+    ck_state = {"params": first_layers(state["params"], cfg, TRAIN_CUT_LAYERS)[1],
+                "opt": {"m": first_layers(state["opt"]["m"], cfg, TRAIN_CUT_LAYERS)[1],
+                        "v": first_layers(state["opt"]["v"], cfg, TRAIN_CUT_LAYERS)[1],
+                        "step": state["opt"]["step"]}}
     t = _now()
-    ck.save(TRAIN_STEPS - 1, state)
+    ck.save(TRAIN_STEPS - 1, ck_state)
     snapshot_s = _now() - t
     # beside the checkpoint's writer thread: the gradients and the flash backward
-    card_cpu = grads_card_vs_cpu(lm, first_batch)
+    cut, params_cut = first_layers(lm["params32"], cfg, TRAIN_CUT_LAYERS)
+    card_cpu = grads_card_vs_cpu(cut, params_cut, {k: a[:1, :TRAIN_GRAD_TOKENS]
+                                                   for k, a in first_batch.items()}, "train")
+    del params_cut
     flash = flash_backward_check(dev)
     ck.wait()
     save_s = _now() - t
     nbytes = sum(f.stat().st_size for f in ck_dir.rglob("*") if f.is_file())
     t = _now()
-    restored, step = restore_checkpoint(ck_dir, state, dev)
+    restored, step = restore_checkpoint(ck_dir, ck_state, dev)
     _sync()
     restore_s = _now() - t
     bitwise = step == TRAIN_STEPS - 1 and all(
-        torch.equal(_bits(a), _bits(b)) for a, b in zip(leaves(restored), leaves(state),
+        torch.equal(_bits(a), _bits(b)) for a, b in zip(leaves(restored), leaves(ck_state),
                                                       strict=True))
     check(bitwise, "train: the restored checkpoint differs from the state")
-    del restored
+    del restored, ck_state
     shutil.rmtree(ck_dir)
 
     emit({"phase": "train", "seconds": _now() - t0, "arch": cfg.name, "n_layers": cfg.n_layers,
@@ -2857,7 +2917,8 @@ def phase_train(lm: dict, dev) -> dict:
           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med, "peak_device_mib": peak,
           "microbatches_2": {"max_abs_param_diff": mb_err, "seconds": mb_s},
           "compression": comp, "card_vs_cpu": card_cpu, "flash_backward": flash,
-          "checkpoint": {"bytes": nbytes, "snapshot_s": snapshot_s, "save_s": save_s,
+          "checkpoint": {"layers": TRAIN_CUT_LAYERS, "bytes": nbytes,
+                         "snapshot_s": snapshot_s, "save_s": save_s,
                          "restore_s": restore_s, "bitwise": bitwise},
           "launches": launched})
     params = state["params"]
@@ -2953,16 +3014,271 @@ def phase_train_cli(cli: dict) -> None:
           "supervisor": sup.splitlines()})
 
 
+KINDS_FLAG = "--lm-kinds"
+KINDS_TIMEOUT = 600
+# teacher forcing of the other block kinds at full width, f32: arch ->
+# (layers kept, None for all; batch; prefill; decode steps; forward length,
+# a multiple of the flash / SSD chunks past the decoded positions)
+KINDS_TF = {
+    "deepseek_v3_671b": (4, 1, 256, 64, 320),        # the 3 mla+ffn and the first mla+moe
+    "llama4_scout_17b_a16e": (2, 2, 256, 64, 320),   # 2 of 48 gqa+moe
+    "recurrentgemma_2b": (None, 2, 2560, 64, 3072),  # all 26: the 2,048 ring filled, wrapped
+    "mamba2_1_3b": (None, 2, 1024, 64, 1152),        # all 48: chunks of 128
+}
+# MoE teacher forcing at capacity factor E / top_k: cap = t, no route can
+# drop. The JAX smoke configs' 8.0 drops at full width (the drops it would
+# make are printed beside, `moe_drops_at_8`): at random init the router
+# sends most tokens to a few experts
+KINDS_SMOKE_CAPACITY = 8.0
+KINDS_TF_MAX_ERR = 1e-3    # tests/test_serve_consistency.py's f32 rule
+KINDS_TF_MIN_AGREE = 0.99
+KINDS_CAP_BATCH, KINDS_CAP_SEQ = 2, 512   # one prefill at the published capacity (1.25)
+KINDS_GRADS = {"recurrentgemma_2b": (3, 128), "mamba2_1_3b": (1, 256)}   # layers, tokens; B 1
+KINDS_SERVE_BATCH, KINDS_SERVE_PROMPT, KINDS_SERVE_STEPS = 8, 128, 33   # bf16, greedy
+
+
+@contextmanager
+def moe_calls():
+    """Records (params, x) of every `models.ffn.moe_forward` call made
+    inside (the model looks it up at each call)."""
+    from repro_torch.models import ffn
+
+    seen, orig = [], ffn.moe_forward
+
+    def recording(params, x, cfg, rt=None):
+        seen.append((params, x))
+        return orig(params, x, cfg, rt)
+
+    ffn.moe_forward = recording
+    try:
+        yield seen
+    finally:
+        ffn.moe_forward = orig
+
+
+def recount_drops(gate, cap: int):
+    """(t, E) bool: the routes past cap, recounted by rank from the combine
+    weights without a sort: a route (i, e) is dropped when at least cap
+    routes to e weigh more, or as much from a lower token index."""
+    import torch
+
+    t, e = gate.shape
+    idx = torch.arange(t, device=gate.device)
+    out = torch.zeros_like(gate, dtype=torch.bool)
+    for e0 in range(0, e, 32):
+        g = gate[:, e0:e0 + 32].T                              # (c, t)
+        above = (g[:, None, :] > g[:, :, None]) | (
+            (g[:, None, :] == g[:, :, None]) & (idx[None, None, :] < idx[None, :, None]))
+        out[:, e0:e0 + 32] = ((above & (g[:, None, :] > 0)).sum(-1) >= cap).T & (g.T > 0)
+    return out
+
+
+def chosen_by_rank(probs, k: int):
+    """(t, E) bool: the experts each token's router chooses, by rank (higher
+    probability, or equal and a lower expert index), without a sort."""
+    import torch
+
+    e = probs.shape[1]
+    idx = torch.arange(e, device=probs.device)
+    out = torch.zeros_like(probs, dtype=torch.bool)
+    for e0 in range(0, e, 64):
+        p = probs[:, e0:e0 + 64]                                # (t, c)
+        above = (probs[:, None, :] > p[:, :, None]) | (
+            (probs[:, None, :] == p[:, :, None]) & (idx[None, None, :] < idx[e0:e0 + 64][None, :,
+                                                                                    None]))
+        out[:, e0:e0 + 64] = above.sum(-1) < k
+    return out
+
+
+def moe_layer_drops(calls, cfg) -> list:
+    """Each recorded MoE call's routes: the port's dropped routes
+    (`ffn.moe_dropped`, the path's own selection) against `recount_drops`,
+    and the router's chosen experts against `chosen_by_rank`."""
+    import torch
+
+    from repro_torch.models import ffn
+    from repro_torch.models.attention import rmsnorm
+
+    rows = []
+    for layer, (params, x) in enumerate(calls):
+        h = rmsnorm(x, params["ln"], cfg.norm_eps)
+        xt = h.reshape(-1, h.shape[-1])
+        cap = ffn._capacity(xt.shape[0], cfg)
+        dropped = ffn.moe_dropped(params, h, cfg)
+        gate = ffn._route(params["router"], xt, cfg)
+        probs = torch.softmax(torch.einsum("td,de->te", xt.float(), params["router"]), dim=-1)
+        recount = recount_drops(gate, cap)
+        rows.append({"layer": layer, "tokens": xt.shape[0], "cap": cap,
+                     "routes": int((gate > 0).sum()), "dropped": int(dropped.sum()),
+                     "recount": int(recount.sum()),
+                     "equal": bool(torch.equal(dropped, recount)),
+                     "router_equal": bool(torch.equal(gate > 0,
+                                                      chosen_by_rank(probs, cfg.moe.top_k)))})
+    return rows
+
+
+def kinds_model(arch: str, dev) -> None:
+    """One arch of the other block kinds at full width (depth KINDS_TF):
+    f32 weights from models.init_params (a torch.Generator seeded 0) and
+    teacher forcing against the full forward (MoE at capacity factor E /
+    top_k, where no route can drop: its drops must be 0, and the drops the
+    smoke configs' 8.0 would make on the same calls are printed beside);
+    for MoE archs one prefill at the
+    published capacity, its drops against the recount; for the recurrent
+    archs loss_fn's gradients card against CPU on their first layers; then
+    the same weights in bf16 served through ServeEngine.generate at B 8
+    (decode ms a step, no limit). Frees the card before it returns."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import model
+    from repro_torch.models.params import count_params
+    from repro_torch.serve.engine import ServeEngine
+
+    t0 = _now()
+    layers, b, s0, dec, s_fwd = KINDS_TF[arch]
+    pub = get_arch(arch) if layers is None else get_arch(arch).with_overrides(n_layers=layers)
+    cfg = pub if pub.moe is None else pub.with_overrides(
+        moe=replace(pub.moe, capacity_factor=pub.moe.num_experts / pub.moe.top_k))
+    rt = Runtime()
+    free_mib = torch.cuda.mem_get_info()[0] / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               dtype=torch.float32, device=dev)
+    init_s = _now() - t0
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s_fwd)).astype(
+        np.int32)).to(dev)
+    with moe_calls() as calls:
+        tf, launched = counted(teacher_forcing, params, tokens, cfg, rt, s0, dec)
+    drops_free = sum(r["dropped"] for r in moe_layer_drops(calls, cfg))
+    drops_8 = None if cfg.moe is None else sum(r["dropped"] for r in moe_layer_drops(
+        calls, cfg.with_overrides(moe=replace(cfg.moe, capacity_factor=KINDS_SMOKE_CAPACITY))))
+    n_calls = len(calls)
+    del calls
+    check(drops_free == 0, f"lm_kinds {arch}: {drops_free} routes dropped at capacity "
+                           f"{cfg.moe and cfg.moe.capacity_factor}")
+    check(tf["max_err"] <= KINDS_TF_MAX_ERR and tf["argmax_agreement"] >= KINDS_TF_MIN_AGREE,
+          f"lm_kinds {arch} f32 teacher forcing: {tf}")
+    out = {"phase": "lm_kinds", "arch": arch, "n_layers": cfg.n_layers,
+           "published_layers": get_arch(arch).n_layers, "d_model": cfg.d_model,
+           "params": count_params(cfg), "dtype": "float32", "free_mib_at_start": free_mib,
+           "init_s": init_s, "teacher_forcing": {"batch": b, "prefill": s0, "decoded": dec,
+                                                  "forward_len": s_fwd, **tf}}
+    if cfg.moe is not None:
+        out["moe_drop_free_capacity"] = cfg.moe.capacity_factor
+        out["moe_drops_at_drop_free_capacity"] = drops_free
+        out["moe_calls"] = n_calls
+        out["moe_drops_at_8"] = drops_8
+        ptok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(
+            KINDS_CAP_BATCH, KINDS_CAP_SEQ)).astype(np.int32)).to(dev)
+        t = _now()
+        with moe_calls() as calls, torch.no_grad():
+            model.prefill(params, {"tokens": ptok}, pub, rt)
+            rows = moe_layer_drops(calls, pub)
+        del calls
+        check(all(r["equal"] and r["router_equal"] for r in rows),
+              f"lm_kinds {arch}: dropped routes at capacity {pub.moe.capacity_factor} differ "
+              f"from the recount: {rows}")
+        out["published_capacity"] = {"capacity_factor": pub.moe.capacity_factor,
+                                     "batch": KINDS_CAP_BATCH, "seq": KINDS_CAP_SEQ,
+                                     "layers": rows, "seconds": _now() - t}
+    if arch in KINDS_GRADS:
+        n, s_g = KINDS_GRADS[arch]
+        cut, sub = first_layers(params, cfg, n)
+        batch = SyntheticTokenPipeline(cut, 1, s_g, seed=0, device=dev).batch(0)
+        out["card_vs_cpu"] = grads_card_vs_cpu(cut, sub, batch, f"lm_kinds {arch}")
+        del sub
+    del params, tokens
+    torch.cuda.empty_cache()
+
+    # serving: the same draws in bf16 (init_params rounds the f32 normals)
+    params16 = model.init_params(pub, torch.Generator(device=dev).manual_seed(0), device=dev)
+    eng = ServeEngine(pub, rt, params16, max_seq=KINDS_SERVE_PROMPT + KINDS_SERVE_STEPS)
+    prompts = rng.integers(0, cfg.vocab_size, size=(KINDS_SERVE_BATCH, KINDS_SERVE_PROMPT)
+                           ).astype(np.int32)
+    eng.generate(prompts, 2)   # warm-up
+    t = _now()
+    served, served_launches = counted(eng.generate, prompts, KINDS_SERVE_STEPS)
+    gen_s = _now() - t
+    ptok = torch.from_numpy(prompts).to(dev)
+    prefill_s = []
+    with torch.no_grad():
+        for _ in range(2):
+            t = _now()
+            model.prefill(params16, {"tokens": ptok}, pub, rt,
+                          s_max=KINDS_SERVE_PROMPT + KINDS_SERVE_STEPS)
+            prefill_s.append(_now() - t)
+    decode_ms = (gen_s - min(prefill_s)) / (KINDS_SERVE_STEPS - 1) * 1e3
+    check(served.shape == (KINDS_SERVE_BATCH, KINDS_SERVE_STEPS)
+          and bool(((served >= 0) & (served < cfg.vocab_size)).all()),
+          f"lm_kinds {arch}: served tokens {served.shape} out of range")
+    for name, counts in (("teacher forcing", launched), ("served", served_launches)):
+        check(not any(counts.values()), f"lm_kinds {arch} {name}: kernels launched on a "
+                                        f"plain-torch path: {counts}")
+    out["served_bf16"] = {"batch": KINDS_SERVE_BATCH, "prompt": KINDS_SERVE_PROMPT,
+                          "steps": KINDS_SERVE_STEPS, "generate_s": gen_s,
+                          "prefill_s": prefill_s, "decode_ms_per_step": decode_ms,
+                          "decode_tokens_per_s": KINDS_SERVE_BATCH / decode_ms * 1e3,
+                          "sample": served[0, :16].tolist()}
+    out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["launches"] = launched
+    out["seconds"] = _now() - t0
+    del eng, params16
+    torch.cuda.empty_cache()
+    emit(out)
+
+
+def lm_kinds(dev) -> None:
+    """The other block kinds' paths (`kinds_model`), deepseek first while
+    nothing large is on the card. `chip_smoke.py --lm-kinds` runs them in a
+    process of their own, started at the smoke's start (no kernel); the
+    LM paths' process starts only once it has exited."""
+    for arch in KINDS_TF:
+        kinds_model(arch, dev)
+
+
 LM_PATHS_FLAG = "--lm-paths"
 LM_PATHS_TIMEOUT = 900
+
+
+SHARDED_FLAG = "--sharded-paths"
+SHARDED_TIMEOUT = 900
+
+
+def sharded_paths(dev) -> None:
+    """Paths 5–8 on the same corpus, queries and truth made again: phases
+    `sharded`, `delta`, `durable` and `serve` in order on one sharded
+    index. `chip_smoke.py --sharded-paths` runs them in a process of its
+    own, started once the kernels are built and timed; `serve`'s launches
+    go to the kernels line."""
+    X, Q, _, _ = corpus(dev)
+    index, _ = phase_sharded(X, Q, exact_truth(X, Q))
+    phase_delta(index)
+    rdur, state = phase_durable(index, Q)
+    del index
+    phase_serve(rdur, Q)
+    rdur.close()
+    shutil.rmtree(state)
+
+
+def finish_sharded_paths(proc) -> dict:
+    """Waits for the sharded paths' process, relays its lines, and returns
+    its serve phase's launches."""
+    lines = finish_side(proc, SHARDED_TIMEOUT, "sharded paths")
+    serve = next((json.loads(ln) for ln in lines if ln.startswith('{"phase": "serve"')), None)
+    check(serve is not None, "the sharded paths printed no serve phase")
+    return serve["launches"]
 
 
 def lm_paths(dev) -> None:
     """The LM-side paths: the LM's serving and training command lines
     (beside them), the weights, phases `train`, `knn_store` (on the trained
-    weights), `lm` (on the random ones), `knn_lm` (trained) and
-    `train_cli`. `chip_smoke.py --lm-paths` runs them in a second process
-    beside the retrieval phases (`start_lm_paths`), so their seconds and
+    weights), `lm` (on the random ones), `knn_lm` (trained), `serve_cli`
+    and `train_cli`. `chip_smoke.py --lm-paths` runs them in a process
+    beside the retrieval phases (`start_side`), so their seconds and
     rates share the card and the host with those."""
     cli = start_lm_cli()
     train_cli = start_train_cli()
@@ -2972,6 +3288,7 @@ def lm_paths(dev) -> None:
         store = phase_knn_store(lm, trained, dev)
         phase_lm(lm, cli, dev)
         phase_knn_lm(lm, trained, store, dev)
+        phase_serve_cli()
         phase_train_cli(train_cli)
     finally:
         train_cli["stop"].set()
@@ -2982,34 +3299,48 @@ def lm_paths(dev) -> None:
         train_cli["thread"].join(timeout=60)
 
 
-def start_lm_paths() -> subprocess.Popen:
-    """`chip_smoke.py --lm-paths` in a process group of its own (so that
-    its command line goes with it), its output kept in temporary files
-    for `finish_lm_paths`. Started once the kernels are built."""
+def start_side(flag: str) -> subprocess.Popen:
+    """`chip_smoke.py <flag>` in a process group of its own (so that what it
+    starts goes with it), its output kept in temporary files for
+    `finish_side`."""
     import tempfile
 
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
-    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), LM_PATHS_FLAG],
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag],
                             cwd=Path(__file__).resolve().parent, stdout=out, stderr=err,
                             text=True, start_new_session=True)
     proc.out, proc.err = out, err
     return proc
 
 
-def finish_lm_paths(proc) -> tuple[dict, list]:
-    """Waits for the LM paths' process, fails unless it exited 0, relays
-    its phase lines, and returns its knn_lm phase's (launches, kernel rows)
-    for the kernels line."""
-    rc = proc.wait(timeout=LM_PATHS_TIMEOUT)
+def finish_side(proc, timeout: float, label: str) -> list:
+    """Waits for a `start_side` process, relays its lines, fails unless it
+    exited 0, and returns its lines."""
+    rc = proc.wait(timeout=timeout)
     proc.out.seek(0)
     proc.err.seek(0)
     lines, err = proc.out.read().splitlines(), proc.err.read()
-    knn = None
     for ln in lines:
         print(ln, flush=True)
-        if ln.startswith('{"phase": "knn_lm"'):
-            knn = json.loads(ln)
-    check(rc == 0, f"the LM paths exited {rc}: {err[-4000:]}")
+    check(rc == 0, f"the {label} exited {rc}: {err[-4000:]}")
+    return lines
+
+
+def finish_lm_kinds(proc) -> None:
+    """Waits for the other block kinds' process (`lm_kinds`), relays its
+    lines and checks that every arch printed its phase. Called before the
+    LM paths start: the `train` phase's 47 GB and deepseek's 60 GB never
+    share the card."""
+    lines = finish_side(proc, KINDS_TIMEOUT, "other block kinds' paths")
+    done = {json.loads(ln)["arch"] for ln in lines if ln.startswith('{"phase": "lm_kinds"')}
+    check(done == set(KINDS_TF), f"lm_kinds printed {sorted(done)}, not {sorted(KINDS_TF)}")
+
+
+def finish_lm_paths(proc) -> tuple[dict, list]:
+    """Waits for the LM paths' process, relays its phase lines, and returns
+    its knn_lm phase's (launches, kernel rows) for the kernels line."""
+    lines = finish_side(proc, LM_PATHS_TIMEOUT, "LM paths")
+    knn = next((json.loads(ln) for ln in lines if ln.startswith('{"phase": "knn_lm"')), None)
     check(knn is not None, "the LM paths printed no knn_lm phase")
     return knn["launches"], knn["kernel_rows"]
 
@@ -3156,6 +3487,14 @@ def main() -> int:
     if sys.argv[1:] == [LM_PATHS_FLAG]:
         lm_paths(dev)
         return 0
+    if sys.argv[1:] == [SHARDED_FLAG]:
+        sharded_paths(dev)
+        return 0
+    if sys.argv[1:] == [KINDS_FLAG]:
+        # half the host's cores: nvcc and the host builder run beside it
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+        lm_kinds(dev)
+        return 0
     t_start = time.perf_counter()
     from repro_torch.kernels import _build
 
@@ -3175,6 +3514,8 @@ def run_phases(dev, t_start: float, _build, procs: list) -> int:
     """The phases in order; `procs` collects the processes they start."""
     import torch
 
+    kinds = start_side(KINDS_FLAG)     # plain torch: it needs no kernel
+    procs.append(kinds)
     with ThreadPoolExecutor(1) as pool:
         libs = pool.submit(_build.build_all)
         X, Q = phase_data(dev)
@@ -3185,25 +3526,25 @@ def run_phases(dev, t_start: float, _build, procs: list) -> int:
     kernel_rows, worst = phase_kernels(host_index, Q)
     bulk_rows, worst_bulk = phase_kernels_bulk(bulk_index, Q, build_rec)
     del build_rec
+    rest_rows, worst_rest, rest_counts = phase_kernels_rest(bulk_index, Q)
+    # the kernels are built and timed: the sharded and LM paths load them
+    # beside the phases below, the LM paths once the other block kinds'
+    # models have left the card
+    sharded = start_side(SHARDED_FLAG)
+    procs.append(sharded)
+    finish_lm_kinds(kinds)
+    lm = start_side(LM_PATHS_FLAG)
+    procs.append(lm)
     results, counts = phase_search(host_index, Q, truth, "search", HOST_P)
     phase_mixed(results, "mixed")
+    del host_index
     bulk_results, _ = phase_search(bulk_index, Q, truth, "search_bulk")
     phase_mixed(bulk_results, "mixed_bulk")
     band_counts = phase_band(bulk_index, Q, bulk_results)
-    rest_rows, worst_rest, rest_counts = phase_kernels_rest(bulk_index, Q)
     phase_nan(bulk_index, Q)
-    procs.append(start_lm_paths())     # the kernels are built: they load them
-    sharded_index, _ = phase_sharded(bulk_index.X, Q, truth, bulk_results)
-    phase_delta(sharded_index)
-    rdur, state = phase_durable(sharded_index, Q)
-    del sharded_index, host_index
-    serve_counts = phase_serve(rdur, Q)
-    rdur.close()
-    del rdur
-    shutil.rmtree(state)
-    phase_serve_cli()
-    knn_counts, knn_rows = finish_lm_paths(procs[-1])
     phase_mlsh(bulk_index.X, Q, truth, bulk_results)
+    serve_counts = finish_sharded_paths(sharded)
+    knn_counts, knn_rows = finish_lm_paths(lm)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

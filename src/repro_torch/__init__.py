@@ -32,9 +32,10 @@ The port of `repro` (JAX + Pallas for the TPU), mirroring its layout:
                          knn_lm (kNN-LM over a U-HNSW datastore)
   repro_torch.configs  — the ten architecture configs, field for field
   repro_torch.dist     — Runtime on one card (the mesh is not ported)
-  repro_torch.models   — parameter specs, GQA attention (the flash forward
-                         and its backward), the dense FFN, the loss,
-                         prefill and decode (gqa+ffn blocks)
+  repro_torch.models   — parameter specs, GQA (full and local) and MLA
+                         attention (the flash forward and its backward),
+                         the dense FFN and the MoE, RG-LRU and SSD, the
+                         loss, prefill and decode (every block kind)
   repro_torch.optim    — adamw: the reference's AdamW, in place
   repro_torch.train    — step (TrainConfig, make_train_step: microbatches,
                          int8 gradient compression), compression and

@@ -26,8 +26,8 @@ class Runtime:
     The reference's fields and defaults. mesh=None is one card, the only
     layout ported. remat recomputes each layer's activations in the
     backward (`models.model._backbone`); rules and moe_decode_gather are
-    taken and change nothing on one card (the MoE decode path is not
-    ported yet).
+    taken and inert on one card: the weights-stationary MoE decode runs
+    only with dp_size > 1 (`models.ffn.moe_forward`).
     """
 
     mesh: Any = None

@@ -8,10 +8,9 @@ Counterpart of `repro.launch.serve`:
   PYTHONPATH=src python -m repro_torch.launch.serve --retrieval \
       --n 200000 --requests 1024 --state-dir DIR
 
-It runs on the CUDA card unless given --device cpu. The LM runs on one card
-and only archs whose blocks are all `gqa+ffn` (the dense GQA family): a
-mesh (--data or --model other than 1) and the other block kinds exit with
-an error naming the ROADMAP item that ports them.
+It runs on the CUDA card unless given --device cpu. The LM serves every
+arch, on one card: a mesh (--data or --model other than 1) exits with an
+error naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -246,15 +245,10 @@ def main(argv=None) -> int:
     if args.retrieval:
         return serve_retrieval(args)
     from repro_torch.dist.sharding import MESH_ITEM
-    from repro_torch.models.model import KINDS_ITEM, unported_kinds
 
     if args.data != 1 or args.model != 1:
         ap.error(f"--data {args.data} --model {args.model}: the port serves on one card; "
                  f"a mesh waits for {MESH_ITEM}")
-    missing = unported_kinds(get_arch(args.arch, smoke=args.smoke))
-    if missing:
-        ap.error(f"--arch {args.arch}: block kinds {missing} are not ported; they wait "
-                 f"for {KINDS_ITEM}")
     return serve_lm(args)
 
 

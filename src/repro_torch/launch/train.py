@@ -8,9 +8,9 @@ Counterpart of `repro.launch.train`, with its flags and its printed lines:
   # same --ckpt-dir to resume from the last checkpoint
   ... --fail-at-step 7
 
-It runs on the CUDA card unless given --device cpu. One card only: --data
-or --model other than 1 exits with an error naming ROADMAP item 11(c), and
-an arch with a block kind other than `gqa+ffn` one naming item 11(b).
+It runs on the CUDA card unless given --device cpu. Every arch trains, on
+one card only: --data or --model other than 1 exits with an error naming
+ROADMAP item 11(c).
 Use launch/supervisor.py for automatic restart on failure.
 """
 
@@ -61,16 +61,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from repro_torch.dist.sharding import MESH_ITEM
-    from repro_torch.models.model import KINDS_ITEM, unported_kinds
 
     if args.data != 1 or args.model != 1:
         ap.error(f"--data {args.data} --model {args.model}: the port trains on one card; "
                  f"a mesh waits for {MESH_ITEM}")
     cfg = get_arch(args.arch, smoke=args.smoke)
-    missing = unported_kinds(cfg)
-    if missing:
-        ap.error(f"--arch {args.arch}: block kinds {missing} are not ported; they wait "
-                 f"for {KINDS_ITEM}")
 
     import torch
 

@@ -2,15 +2,14 @@
 
 Counterpart of `repro.models`. Block taxonomy (each layer = sequence mixer +
 channel mixer):
-  sequence mixers : gqa (ported) | local_gqa | mla | rglru | ssd
-  channel mixers  : ffn (swiglu / squared_relu / gelu; ported) | moe | none
+  sequence mixers : gqa | local_attn | mla | rglru | ssd
+  channel mixers  : ffn (swiglu / squared_relu / gelu) | moe | none
 
 Layers stack in run-length-encoded segments of identical layer kinds, with
 the reference's parameter tree (params.layer_plan); a Python loop takes the
 place of `lax.scan`. `loss_fn` gives the training loss (chunked
 cross-entropy, the MTP auxiliary), and attention carries the flash
-backward. Only `gqa+ffn` runs so far: the other kinds wait for ROADMAP
-queue 1 item 11(b).
+backward. Every kind runs, for all ten configs.
 """
 
 from repro_torch.models.model import (  # noqa: F401

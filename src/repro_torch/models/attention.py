@@ -1,6 +1,7 @@
-"""Attention mixers: GQA, prefill, training and decode paths (plain PyTorch).
+"""Attention mixers: GQA (full and local) and MLA, prefill, training and
+decode paths (plain PyTorch).
 
-Counterpart of `repro.models.attention`'s GQA part. Prefill and training
+Counterpart of `repro.models.attention`. Prefill and training
 attention is the reference's flash formulation: a loop over query chunks
 with an inner loop over only the causally reachable (and, with a window,
 window-reachable) KV chunks, carrying online-softmax statistics in f32. It
@@ -13,7 +14,10 @@ over only the reachable query chunks, dq accumulated across them. It saves
 q, k, v, the output and the log-sum-exp, never a score tile. Under
 `torch.no_grad()` the same forward runs and nothing is kept.
 
-Decode attends one query position against the whole KV cache.
+Decode attends one query position against the whole KV cache. Local
+attention's cache is a ring of min(s_max, window) slots (`gqa_decode`);
+MLA decodes against its latent cache with the absorbed matrices
+(`mla_decode`).
 
 Precision follows the reference: the score and PV products take their
 inputs at the activations' dtype and accumulate and return f32 (the
@@ -21,9 +25,6 @@ reference's `preferred_element_type=jnp.float32`). A bf16 input is exact in
 f32, so the products run on f32 copies (f64 inputs stay f64, which lets
 `torch.autograd.gradcheck` hold the backward); on the card they need TF32
 off, which is torch's default for matrix products.
-
-The reference's MLA mixer (`mla_forward`, `mla_decode`) waits for ROADMAP
-queue 1 item 11(b).
 """
 
 from __future__ import annotations
@@ -259,11 +260,15 @@ def gqa_decode(params: dict, x: torch.Tensor, k_cache: torch.Tensor, v_cache: to
     place at pos % cache_len (the reference's `dynamic_update_slice` on a
     donated cache) and returns (out, (k_cache, v_cache)).
 
-    Full attention only: the windowed ring buffer of local attention waits
-    for ROADMAP queue 1 item 11(b)."""
-    if window is not None:
-        raise NotImplementedError("local attention's ring-buffer decode waits for "
-                                  "ROADMAP queue 1 item 11(b)")
+    Local attention (a window) keeps a ring of L = min(s_max, window) slots,
+    as `models.model.cache_specs` sizes it: keys carry their absolute rotary
+    embedding, so once the ring has wrapped it holds exactly the window's
+    keys and needs no mask; before that (pos < L) the slots past pos are
+    masked. Full attention is the same formula with L = s_max. The
+    reference's decode writes at pos % s_max into a cache that its prefill
+    pads to s_max and attends to all of it, which equals this below the
+    window only (ROADMAP queue 3); this is its forward's window."""
+    del window  # the ring's length carries it
     h = rmsnorm(x, params["ln"], cfg.norm_eps)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(params, h, positions, cfg)
@@ -272,3 +277,76 @@ def gqa_decode(params: dict, x: torch.Tensor, k_cache: torch.Tensor, v_cache: to
     v_cache[:, write_idx] = v[:, 0]
     out = decode_attention(q, k_cache, v_cache, pos)
     return torch.einsum("bshe,hed->bsd", out, params["wo"]), (k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# MLA block (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+def _mla_qkv(params: dict, h: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
+    """(q_nope, q_rope, c_kv, k_rope): the query through its low-rank
+    projection and norm, the latent c_kv (B, S, r) and the shared rotary
+    key (B, S, 1, rope_hd)."""
+    m = cfg.mla
+    q_lat = rmsnorm(torch.einsum("bsd,dr->bsr", h, params["wq_a"]), params["q_norm"],
+                    cfg.norm_eps)
+    q = torch.einsum("bsr,rhe->bshe", q_lat, params["wq_b"])
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    kv_a = torch.einsum("bsd,dr->bsr", h, params["wkv_a"])
+    c_kv = rmsnorm(kv_a[..., :m.kv_lora_rank], params["kv_norm"], cfg.norm_eps)
+    k_rope = rope(kv_a[..., m.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_scale(cfg: ArchConfig) -> float:
+    return (cfg.mla.nope_head_dim + cfg.mla.rope_head_dim) ** -0.5
+
+
+def mla_forward(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
+    """Full-sequence MLA (prefill, training): per-head K and V expanded from
+    the latent, then the flash attention (qk dim nope + rope, v dim
+    v_head_dim; its backward is `_FlashCore`'s). Returns (out, (c_kv,
+    k_rope))."""
+    m = cfg.mla
+    h = rmsnorm(x, params["ln"], cfg.norm_eps)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, h, positions, cfg)
+    k_nope = torch.einsum("bsr,rhe->bshe", c_kv, params["wk_b"])
+    v = torch.einsum("bsr,rhe->bshe", c_kv, params["wv_b"])
+    k_rope_b = k_rope.expand(*k_rope.shape[:2], cfg.n_heads, m.rope_head_dim)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope_b], dim=-1)
+    out = flash_attention(q_full, k_full, v, scale=_mla_scale(cfg))
+    return torch.einsum("bshe,hed->bsd", out, params["wo"]), (c_kv, k_rope)
+
+
+def mla_decode(params: dict, x: torch.Tensor, ckv_cache: torch.Tensor,
+               krope_cache: torch.Tensor, pos: int, cfg: ArchConfig):
+    """Absorbed-matrix MLA decode: scores straight against the latent cache.
+
+    scores = (q_nope W_uk) . c_kv + q_rope . k_rope, so the per-head K is
+    never formed; the value path contracts the latent first. Writes this
+    token's c_kv and k_rope into the caches (B, S_max, r) and (B, S_max, 1,
+    rope_hd) in place at pos. Scores and context in f32, the mask k_pos <=
+    pos; p is cast to the cache's dtype, the context to x's. Returns (out,
+    (ckv_cache, krope_cache))."""
+    b = x.shape[0]
+    h = rmsnorm(x, params["ln"], cfg.norm_eps)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(params, h, positions, cfg)
+    ckv_cache[:, pos] = c_kv_new[:, 0]
+    krope_cache[:, pos] = k_rope_new[:, 0]
+
+    # absorb W_uk into q: (B, 1, H, nope) x (r, H, nope) -> (B, H, r)
+    q_lat = torch.einsum("bshe,rhe->bhr", q_nope, params["wk_b"])
+    scores = (torch.einsum("bhr,btr->bht", _f32(q_lat), _f32(ckv_cache))
+              + torch.einsum("bshe,bte->bht", _f32(q_rope), _f32(krope_cache[:, :, 0, :]))
+              ) * _mla_scale(cfg)
+    k_pos = torch.arange(ckv_cache.shape[1], device=x.device)
+    scores = torch.where(k_pos[None, None, :] <= pos, scores, _NEG)
+    p = torch.softmax(scores, dim=-1)
+    ctx_lat = torch.einsum("bht,btr->bhr", _f32(p.to(ckv_cache.dtype)), _f32(ckv_cache))
+    out = torch.einsum("bhr,rhe->bhe", ctx_lat.to(x.dtype), params["wv_b"])
+    out = torch.einsum("bhe,hed->bd", out, params["wo"])[:, None, :]
+    return out, (ckv_cache, krope_cache)

@@ -9,13 +9,13 @@ and carries across leaf for leaf (`repro_torch.convert`). With
 `Runtime.remat`, each layer's body is recomputed in the backward
 (`torch.utils.checkpoint`, the reference's `jax.checkpoint`).
 
+Every block kind of the reference's dispatch runs: the sequence mixers
+gqa, local_attn (the window), mla, rglru and ssd (which has no channel
+mixer), and the channel mixers ffn and moe.
+
 Cross-entropy is computed in sequence chunks of LOSS_CHUNK positions against
 the head, so no more than one chunk's (B, C, V) logits exist at a time in
 the forward.
-
-Only `gqa+ffn` blocks run so far (the dense GQA family: six of the ten
-configs). Every other block kind raises `NotImplementedError` naming
-ROADMAP queue 1 item 11(b).
 """
 
 from __future__ import annotations
@@ -27,21 +27,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.sharding import Runtime, constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import recurrent as rec
 from repro_torch.models.params import ParamSpec, _map_specs, layer_plan
 
 LOSS_CHUNK = 1024
 MTP_WEIGHT = 0.3
-PORTED_KINDS = ("gqa+ffn",)
-KINDS_ITEM = "ROADMAP queue 1 item 11(b) (the other block kinds)"
-
-
-def unported_kinds(cfg: ArchConfig) -> list[str]:
-    """The block kinds of cfg's layer plan that the port cannot run yet."""
-    return sorted({k for unit, _ in layer_plan(cfg) for k in unit} - set(PORTED_KINDS))
-
-
-def _refuse(kind: str):
-    raise NotImplementedError(f"block kind {kind!r} is not ported; it waits for {KINDS_ITEM}")
+SEQ_KEYS = ("k", "v", "ckv", "krope")   # cache entries with a sequence axis
 
 
 def _layer(tree, r: int):
@@ -71,29 +62,86 @@ def embed_input(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _channel(kind: str, bp: dict, x, cfg: ArchConfig, rt: Runtime):
+    channel = kind.partition("+")[2]   # none for ssd
+    if channel == "ffn":
+        return x + ffn_mod.ffn_forward(bp["channel"], x, cfg, rt)
+    if channel == "moe":
+        return x + ffn_mod.moe_forward(bp["channel"], x, cfg, rt)
+    return x
+
+
+def _window(mixer: str, cfg: ArchConfig) -> int | None:
+    return cfg.local_window if mixer == "local_attn" else None
+
+
 def _apply_block(kind: str, bp: dict, x, positions, cfg: ArchConfig, rt: Runtime):
     """One layer (sequence mixer + channel mixer), full-sequence mode.
 
     Returns (x, cache_entry) — the entry feeds the decode path when this
-    runs as prefill."""
-    if kind not in PORTED_KINDS:
-        _refuse(kind)
-    y, (k, v) = attn.gqa_forward(bp["mixer"], x, positions, cfg)
-    x = x + y
-    x = x + ffn_mod.ffn_forward(bp["channel"], x, cfg, rt)
-    return x, {"k": k, "v": v}
+    runs as prefill (`_cache_entry` lays it out)."""
+    mixer = kind.partition("+")[0]
+    if mixer in ("gqa", "local_attn"):
+        y, (k, v) = attn.gqa_forward(bp["mixer"], x, positions, cfg,
+                                     window=_window(mixer, cfg))
+        cache = {"k": k, "v": v}
+    elif mixer == "mla":
+        y, (ckv, krope) = attn.mla_forward(bp["mixer"], x, positions, cfg)
+        cache = {"ckv": ckv, "krope": krope}
+    elif mixer in ("rglru", "ssd"):
+        fwd = rec.rglru_forward if mixer == "rglru" else rec.ssd_forward
+        y, (state, tail) = fwd(bp["mixer"], x, cfg)
+        cache = {"state": state, "tail": tail}
+    else:
+        raise ValueError(mixer)
+    return _channel(kind, bp, x + y, cfg, rt), cache
 
 
 def _apply_block_decode(kind: str, bp: dict, x, cache: dict, pos: int, cfg: ArchConfig,
                         rt: Runtime):
-    """One layer, single-token decode mode; writes the cache entry in place.
-    Returns (x, cache)."""
-    if kind not in PORTED_KINDS:
-        _refuse(kind)
-    y, (k_c, v_c) = attn.gqa_decode(bp["mixer"], x, cache["k"], cache["v"], pos, cfg)
-    x = x + y
-    x = x + ffn_mod.ffn_forward(bp["channel"], x, cfg, rt)
-    return x, {"k": k_c, "v": v_c}
+    """One layer, single-token decode mode; writes the cache entry in place
+    (the attention caches at this token's slot, the recurrent states and
+    conv tails whole). Returns (x, cache)."""
+    mixer = kind.partition("+")[0]
+    if mixer in ("gqa", "local_attn"):
+        y, _ = attn.gqa_decode(bp["mixer"], x, cache["k"], cache["v"], pos, cfg,
+                               window=_window(mixer, cfg))
+    elif mixer == "mla":
+        y, _ = attn.mla_decode(bp["mixer"], x, cache["ckv"], cache["krope"], pos, cfg)
+    elif mixer in ("rglru", "ssd"):
+        dec = rec.rglru_decode if mixer == "rglru" else rec.ssd_decode
+        y, (state, tail) = dec(bp["mixer"], x, cache["state"], cache["tail"], cfg)
+        cache["state"].copy_(state)
+        cache["tail"].copy_(tail)
+    else:
+        raise ValueError(mixer)
+    return _channel(kind, bp, x + y, cfg, rt), cache
+
+
+def _cache_entry(kind: str, entry: dict, s_max: int | None, cfg: ArchConfig) -> dict:
+    """One layer's prefill outputs in the decode cache's layout. Sequence
+    entries (k, v, ckv, krope: (B, S, ...)) are right-padded with zeros to
+    max(S, s_max); a local-attention layer's k and v instead fill a ring of
+    L = min(max(S, s_max), window) slots with the last min(S, L) positions,
+    each at slot position % L (`attention.gqa_decode`). Recurrent states
+    come in f32; conv tails as they are."""
+    out = {}
+    for key, t in entry.items():
+        if key in SEQ_KEYS:
+            s = t.shape[1]
+            length = max(s, s_max or 0)
+            if kind.startswith("local_attn+"):
+                length = min(length, cfg.local_window)
+                keep = torch.arange(max(s - length, 0), s, device=t.device)
+                ring = t.new_zeros((t.shape[0], length, *t.shape[2:]))
+                ring[:, keep % length] = t[:, keep]
+                t = ring
+            elif length > s:
+                t = torch.cat([t, t.new_zeros((t.shape[0], length - s, *t.shape[2:]))], dim=1)
+        elif key == "state":
+            t = t.float()
+        out[key] = t
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -105,10 +153,10 @@ def _backbone(params: dict, x, positions, cfg: ArchConfig, rt: Runtime,
               collect_cache: bool = False, s_max: int | None = None):
     """Runs the segment stack. Returns (hidden, cache segments | None).
 
-    With collect_cache, each segment's entries come stacked (R, B, S', ...)
-    with the sequence axis right-padded with zeros to S' = max(S, s_max).
-    With rt.remat (and no cache to collect), each layer's unit of blocks runs
-    under `checkpoint`: its activations are recomputed in the backward."""
+    With collect_cache, each segment's entries come stacked (R, B, ...) in
+    the decode cache's layout (`_cache_entry`). With rt.remat (and no cache
+    to collect), each layer's unit of blocks runs under `checkpoint`: its
+    activations are recomputed in the backward."""
     caches = []
     for (unit, repeats), seg in zip(layer_plan(cfg), params["segments"]):
         entries: list[dict | None] = [None] * len(unit)
@@ -129,13 +177,12 @@ def _backbone(params: dict, x, positions, cfg: ArchConfig, rt: Runtime,
             if not collect_cache:
                 continue
             for u, entry in enumerate(unit_entries):
+                entry = _cache_entry(unit[u], entry, s_max, cfg)
                 if entries[u] is None:
-                    entries[u] = {
-                        key: t.new_zeros((repeats, t.shape[0], max(t.shape[1], s_max or 0),
-                                          *t.shape[2:]))
-                        for key, t in entry.items()}
+                    entries[u] = {key: t.new_zeros((repeats, *t.shape))
+                                  for key, t in entry.items()}
                 for key, t in entry.items():
-                    entries[u][key][r, :, :t.shape[1]] = t
+                    entries[u][key][r] = t
         caches.append(entries)
     return x, caches if collect_cache else None
 
@@ -218,8 +265,9 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, rt: Runtime):
 
 
 def cache_specs(cfg: ArchConfig, batch: int, s_max: int) -> list:
-    """ParamSpec tree for the decode cache, aligned with params['segments']
-    (every kind's shapes; only the GQA caches are used so far)."""
+    """ParamSpec tree for the decode cache, aligned with params['segments']:
+    sequence caches of s_max slots (a local-attention ring of min(s_max,
+    window)), recurrent states in f32 and conv tails."""
     hd = cfg.resolved_head_dim
     d = cfg.d_model
     bf16, f32 = torch.bfloat16, torch.float32
@@ -276,7 +324,8 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, rt: Runtime, s_max: int 
     """Full-sequence forward that also materializes the decode cache.
 
     Returns (last_hidden (B, 1, d), cache). Attention caches come out
-    (R, B, S, ...), right-padded with zeros to s_max when s_max > S."""
+    (R, B, S, ...), right-padded with zeros to s_max when s_max > S; a
+    local-attention layer's as its ring (`_cache_entry`)."""
     x = embed_input(params, batch, cfg)
     x, caches = _backbone(params, x, _positions(x), cfg, rt, collect_cache=True, s_max=s_max)
     hidden = attn.rmsnorm(x, params["final_norm"], cfg.norm_eps)

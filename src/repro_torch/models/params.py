@@ -7,8 +7,8 @@ truth used by
     the tests),
   * `lm_params_from_reference`'s layout (`repro_torch.convert`).
 
-Every block kind's specs are here (MLA, MoE, RG-LRU and SSD included: they
-are shapes), though only `gqa+ffn` blocks run so far (`models.model`).
+Every block kind's specs are here (GQA, local attention, MLA, FFN, MoE,
+RG-LRU and SSD), and `models.model` runs each of them.
 
 Logical axis vocabulary (the reference maps it onto a mesh; on one card it
 names dims and nothing more):

@@ -408,6 +408,40 @@ def test_train_steps_match_reference(case, dtype):
             assert close.mean() >= 0.99, (b.shape, close.mean())
 
 
+KIND_ARCHS = ["deepseek_v3_671b", "llama4_scout_17b_a16e", "recurrentgemma_2b", "mamba2_1_3b"]
+
+
+@pytest.mark.parametrize("arch", KIND_ARCHS)
+def test_train_steps_match_reference_every_kind(arch):
+    """Two steps of the other block kinds (MLA + MoE + the MTP loss, top-1
+    MoE, RG-LRU + local attention, SSD) from the reference's initial state
+    cast to f32: losses (the MTP auxiliary's too) and grad norms within
+    1e-4 relative, then the parameters within PARAM_ATOL."""
+    rcfg, cfg = r_get_arch(arch, smoke=True), get_arch(arch, smoke=True)
+    rtc = r_step.TrainConfig(lr=3e-3, warmup_steps=1, total_steps=6)
+    tc = TrainConfig(lr=3e-3, warmup_steps=1, total_steps=6)
+    mesh = ref_mesh()
+    rt = RRuntime(mesh=mesh)
+    rpipe = RPipeline(rcfg, 4, 32, seed=3)
+    pipe = SyntheticTokenPipeline(cfg, 4, 32, seed=3, device="cpu")
+    with set_mesh(mesh):
+        rstate = r_step.init_train_state(rcfg, rt, rtc, jax.random.PRNGKey(4))
+        rstate["params"] = jax.tree.map(lambda a: a.astype(jnp.float32), rstate["params"])
+        state = train_state_from_reference(np_tree(rstate), device="cpu")
+        rfn = jax.jit(r_step.make_train_step(rcfg, rt, rtc))
+        fn = make_train_step(cfg, RT, tc)
+        for step in range(2):
+            rstate, rm = rfn(rstate, rpipe.batch(step))
+            state, m = fn(state, pipe.batch(step))
+            assert m.keys() == rm.keys()
+            assert ("mtp_loss" in m) == bool(cfg.mtp_heads)
+            for key in m:
+                assert abs(float(m[key]) - float(rm[key])) <= STEP_RTOL * abs(float(rm[key])), (
+                    step, key, float(m[key]), float(rm[key]))
+    for a, b in zip(leaves(state["params"]), jax.tree.leaves(rstate["params"]), strict=True):
+        np.testing.assert_allclose(f32(a), np.asarray(b, np.float32), rtol=0, atol=PARAM_ATOL)
+
+
 def run_steps(cfg, tc, n_steps, batch_fn, seed=0):
     state = init_train_state(cfg, RT, tc, torch.Generator().manual_seed(seed), device="cpu")
     step = make_train_step(cfg, RT, tc)
@@ -492,7 +526,6 @@ def test_crash_resume_trajectory(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--data", "2"], "11(c)"),
     (["--model", "4"], "11(c)"),
-    (["--arch", "mamba2_1_3b"], "11(b)"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item):
     err = io.StringIO()
@@ -500,3 +533,16 @@ def test_cli_refuses_what_is_not_ported(argv, item):
         train_cli.main(["--smoke", "--device", "cpu", *argv])
     assert exc.value.code == 2
     assert f"ROADMAP queue 1 item {item}" in err.getvalue()
+
+
+def test_cli_trains_the_recurrent_archs(tmp_path):
+    """`launch.train --smoke` on an SSD arch and an RG-LRU + local-attention
+    one: every step's loss finite, a checkpoint written and resumed from."""
+    for arch in ("mamba2_1_3b", "recurrentgemma_2b"):
+        argv = ["--arch", arch, "--smoke", "--steps", "4", "--batch", "2", "--seq", "32",
+                "--save-every", "2", "--ckpt-dir", str(tmp_path / arch), "--device", "cpu",
+                "--metrics-out", str(tmp_path / f"{arch}.json")]
+        assert train_cli.main(argv) == 0
+        losses = json.loads((tmp_path / f"{arch}.json").read_text())["losses"]
+        assert len(losses) == 4 and np.isfinite(losses).all()
+        assert train_cli.main(argv[:3] + ["--steps", "6"] + argv[5:]) == 0
