@@ -96,7 +96,22 @@ read just after:
      MoE capacity factor E / top_k (no route can drop), one prefill at the
      published capacity whose dropped routes must equal a recount by rank,
      loss_fn's gradients on the card against the CPU for the recurrent two,
-     and each served in bf16 at B 8 (decode ms a step); plain torch.
+     and each served in bf16 at B 8 (decode ms a step); plain torch;
+ 16. the mesh (phase `mesh`), on a one-rank NCCL group and its (1, 1)
+     mesh (`launch.mesh.make_local_mesh`), where every collective is a real
+     launch of size 1 and any difference from the mesh-free path is a bug
+     of the mesh code: in the `--lm-kinds` process, deepseek's and llama4's
+     expert-parallel MoE body (`moe_forward` on the mesh) and the
+     weights-stationary decode (`_moe_decode_gather`, B 8) against the
+     mesh-free calls on their published-width layers, then
+     tinyllama_1_1b at full width: its state placed by
+     `distribute_params`, 3 f32 train steps of 8 x 512 tokens (microbatches
+     2, int8 compression) against the mesh-free steps, the explicit-TP FFN
+     against `ffn_forward`, ServeEngine's tokens against the mesh-free
+     engine's and a checkpoint round trip mesh -> no mesh -> mesh; in the
+     `--sharded-paths` process, the 4-segment index placed by `shard_over`
+     and searched at p = 0.5 and the mixed batch (gather_lp,
+     gather_lp_abandon), equal to the unplaced search.
 
 Paths 5–8 run in a second process, `chip_smoke.py --sharded-paths`, on
 the same corpus, queries and truth made again, and paths 9, 10, 11, 13
@@ -107,7 +122,8 @@ the end: their seconds and rates share the card and the host with the
 phases beside them. Path 15 runs in a fourth process, `chip_smoke.py
 --lm-kinds`, started first (it needs no kernel) beside the build; the
 LM paths start only once it has exited, so their models never share the
-card.
+card. Path 16's two parts print `mesh_lm` and `mesh_index` in those
+processes; the first process joins them into the `mesh` line.
 
 It builds the CUDA kernels with nvcc (on a second thread, while the
 data, the brute-force truth and the host builder's graphs are made),
@@ -1459,7 +1475,7 @@ def phase_kernels_rest(index, Q):
 SHARDED_P = (0.5, 1.25, 2.0)
 ROWWISE_P = (0.5, 0.8, 1.0, 1.25, 1.5, 2.0)   # every p family of the rowwise kernel
 SEGMENTS = 4
-DELTA_ROWS = 512
+DELTA_ROWS = 256         # 512 until the mesh came (its seconds: PERF.md §4)
 DELTA_CAPACITY = 1024
 
 
@@ -1615,6 +1631,58 @@ def phase_sharded(X, Q, truth):
           "two_phase_thresh_rank_t": rank_t, "ids_equal_plain": True,
           "compressed_band": band_report})
     return idx, counts
+
+
+MESH_INDEX_P = (0.5, "mixed")
+
+
+def phase_mesh_index(idx, Q) -> None:
+    """The sharded index placed over a one-rank NCCL group's (1, 1) mesh
+    (`shard_over`: the segment axis over 'data', which 1 divides), searched
+    at MESH_INDEX_P under the policy it has, counted: ids, dists and every
+    counter equal to the unplaced search's. Then unplaced again and the
+    group closed, so the later phases run as before."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t0 = _now()
+    want = {p: _search(idx, Q, mixed_p(Q.shape[0]) if p == "mixed" else p)
+            for p in MESH_INDEX_P}
+    t = _now()
+    mesh = make_local_mesh(1, 1, device="cuda")
+    group_s = _now() - t
+    backend = dist.get_backend()
+    try:
+        idx.shard_over(Runtime(mesh=mesh))
+        placed = idx._place is not None
+        got, launched = counted(lambda: {p: _search(idx, Q, mixed_p(Q.shape[0]) if p == "mixed"
+                                                    else p) for p in MESH_INDEX_P})
+    finally:
+        idx.shard_over(None)
+        dist.destroy_process_group()
+    equal = {}
+    for p in MESH_INDEX_P:
+        a, b = got[p], want[p]
+        equal[str(p)] = bool(torch_equal(a[0], b[0]) and torch_equal(a[1], b[1]) and all(
+            torch_equal(getattr(a[2], f), getattr(b[2], f))
+            for f in ("n_b", "n_p", "hops", "n_b_probe", "n_b_spill")))
+    out = {"phase": "mesh_index", "backend": backend, "mesh": [1, 1], "placed": placed,
+           "policy": idx.sharded_params.policy, "segments": idx.num_segments,
+           "queries": Q.shape[0], "p": [str(p) for p in MESH_INDEX_P], "equal": equal,
+           "batch_seconds": {str(p): got[p][3] for p in MESH_INDEX_P},
+           "unplaced_batch_seconds": {str(p): want[p][3] for p in MESH_INDEX_P},
+           "group_start_s": group_s, "launches": launched, "seconds": _now() - t0}
+    check(placed and all(equal.values()), f"mesh: shard_over's search differs: {out}")
+    check_launched(launched, ("gather_lp", "gather_lp_abandon"), "mesh_index")
+    emit(out)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(torch.as_tensor(a), torch.as_tensor(b)))
 
 
 def phase_delta(idx):
@@ -3035,6 +3103,17 @@ KINDS_TF_MIN_AGREE = 0.99
 KINDS_CAP_BATCH, KINDS_CAP_SEQ = 2, 512   # one prefill at the published capacity (1.25)
 KINDS_GRADS = {"recurrentgemma_2b": (3, 128), "mamba2_1_3b": (1, 256)}   # layers, tokens; B 1
 KINDS_SERVE_BATCH, KINDS_SERVE_PROMPT, KINDS_SERVE_STEPS = 8, 128, 33   # bf16, greedy
+# the mesh (path 16) on the (1, 1) NCCL mesh, against the mesh-free calls
+MESH_MOE_TOL = 1e-6        # moe_forward on the mesh, of the largest magnitude (f32)
+MESH_DECODE_B = 8          # _moe_decode_gather's tokens (B 8, S 1)
+MESH_DECODE_TOL = 1e-5
+MESH_TRAIN = (8, 512, 3, 2)   # batch, seq, steps, microbatches: tinyllama_1_1b in f32
+MESH_STEP_RTOL = 1e-6      # losses and grad norms (read: bit for bit)
+MESH_TP_TOL = 1e-6
+MESH_SERVE = (8, 128, 32)  # bf16 ServeEngine: batch, prompt, steps
+MESH_CKPT_LAYERS = 1       # the checkpoint's cut: the parameters of the embedding, head,
+#                            final norm and layer 0 (with the moments, 2.10 GB, the
+#                            part took 47.69 s of its 40)
 
 
 @contextmanager
@@ -3117,7 +3196,44 @@ def moe_layer_drops(calls, cfg) -> list:
     return rows
 
 
-def kinds_model(arch: str, dev) -> None:
+def mesh_moe(cfg, call, mesh) -> dict:
+    """One recorded MoE call (its f32 layer, inputs at the published
+    capacity) through the expert-parallel body on the (1, 1) mesh and the
+    weights-stationary decode on MESH_DECODE_B of its tokens, against the
+    mesh-free calls. The weights are the full ones (no copy): each rank
+    slices its experts, here all of them."""
+    import torch
+
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import ffn
+    from repro_torch.models.attention import rmsnorm
+
+    params, x = call
+    t0 = _now()
+    free, on_mesh = Runtime(), Runtime(mesh=mesh)
+    with torch.no_grad():
+        want = ffn.moe_forward(params, x, cfg, free)
+        got = ffn.moe_forward(params, x, cfg, on_mesh)
+        dropped = int(ffn.moe_dropped(params, rmsnorm(x, params["ln"], cfg.norm_eps), cfg).sum())
+        err = float((got - want).abs().max() / want.abs().max())
+        xd = x.reshape(-1, x.shape[-1])[:MESH_DECODE_B, None, :]
+        want_d = ffn.moe_forward(params, xd, cfg, free)
+        hd = rmsnorm(xd, params["ln"], cfg.norm_eps)
+        got_d = ffn._moe_decode_gather(params, hd, cfg,
+                                       Runtime(mesh=mesh, moe_decode_gather=True))
+        if cfg.moe.n_shared:
+            got_d = got_d + ffn._shared_expert(params, hd, cfg)
+        err_d = float((got_d - want_d).abs().max() / want_d.abs().max())
+    out = {"tokens": x.shape[0] * x.shape[1], "capacity_factor": cfg.moe.capacity_factor,
+           "dropped": dropped, "max_rel_err": err, "bit_equal": bool(torch.equal(got, want)),
+           "decode_tokens": MESH_DECODE_B, "decode_max_rel_err": err_d,
+           "decode_bit_equal": bool(torch.equal(got_d, want_d)), "seconds": _now() - t0}
+    check(err <= MESH_MOE_TOL and dropped > 0, f"mesh: {cfg.name} moe_forward on the mesh: {out}")
+    check(err_d <= MESH_DECODE_TOL, f"mesh: {cfg.name} _moe_decode_gather: {out}")
+    return out
+
+
+def kinds_model(arch: str, dev, mesh=None) -> dict | None:
     """One arch of the other block kinds at full width (depth KINDS_TF):
     f32 weights from models.init_params (a torch.Generator seeded 0) and
     teacher forcing against the full forward (MoE at capacity factor E /
@@ -3178,13 +3294,17 @@ def kinds_model(arch: str, dev) -> None:
         with moe_calls() as calls, torch.no_grad():
             model.prefill(params, {"tokens": ptok}, pub, rt)
             rows = moe_layer_drops(calls, pub)
-        del calls
         check(all(r["equal"] and r["router_equal"] for r in rows),
               f"lm_kinds {arch}: dropped routes at capacity {pub.moe.capacity_factor} differ "
               f"from the recount: {rows}")
         out["published_capacity"] = {"capacity_factor": pub.moe.capacity_factor,
                                      "batch": KINDS_CAP_BATCH, "seq": KINDS_CAP_SEQ,
                                      "layers": rows, "seconds": _now() - t}
+        # path 16: the first MoE layer's call through the mesh
+        mesh_out = mesh_moe(pub, calls[0], mesh) if mesh is not None else None
+        del calls
+    else:
+        mesh_out = None
     if arch in KINDS_GRADS:
         n, s_g = KINDS_GRADS[arch]
         cut, sub = first_layers(params, cfg, n)
@@ -3229,15 +3349,182 @@ def kinds_model(arch: str, dev) -> None:
     del eng, params16
     torch.cuda.empty_cache()
     emit(out)
+    return mesh_out
+
+
+def _cut(tree, r: int):
+    """The first r layers of a tree of stacked (R, ...) DTensor or tensor
+    leaves (a DTensor's local layers, placed as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    def one(t):
+        if not isinstance(t, DTensor):
+            return t[:r]
+        loc = t.to_local()[:r]
+        return DTensor.from_local(loc, t.device_mesh, t.placements, run_check=False,
+                                  shape=(r, *t.shape[1:]), stride=loc.stride())
+
+    return _tree_map(one, tree)
+
+
+def _params_cut(params: dict, n: int) -> dict:
+    """The embedding, head, final norm and first n layers of a parameter
+    tree (DTensor or tensor leaves): `train`'s checkpoint cut."""
+    sub = {k: v for k, v in params.items() if k != "segments"}
+    sub["segments"] = [{"blocks": _cut(params["segments"][0]["blocks"], n)}]
+    return sub
+
+
+def mesh_tinyllama(mesh, dev) -> dict:
+    """tinyllama_1_1b at full width on the (1, 1) mesh against the
+    mesh-free path: the explicit-TP FFN of layer 0, MESH_TRAIN's f32 steps
+    from one initial state placed by `distribute_params` (and the same
+    state whole), ServeEngine's bf16 tokens, and a checkpoint of the
+    trained parameters' cut (MESH_CKPT_LAYERS) and step saved on the
+    mesh, restored off it, saved again and restored onto the mesh, bit
+    for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.store import restore_checkpoint, save_checkpoint
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.dist.sharding import Runtime, distribute_params, full, local
+    from repro_torch.models import ffn, model
+    from repro_torch.models.params import block_specs, param_specs
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.compression import compression_init
+    from repro_torch.train.step import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+
+    t0 = _now()
+    cfg = get_arch(LM_ARCH)
+    on_mesh, free = Runtime(mesh=mesh), Runtime()
+    specs = param_specs(cfg)
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               dtype=torch.float32, device=dev)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model}
+
+    # the explicit-TP FFN (col / row products) against ffn_forward
+    t = _now()
+    bp = {k: v[0] for k, v in params["segments"][0]["blocks"][0]["channel"].items()}
+    tp = Runtime(mesh=mesh, explicit_tp=True)
+    placed_bp = distribute_params(bp, block_specs(cfg, "gqa+ffn")["channel"], tp)
+    x = torch.randn((MESH_TRAIN[0], MESH_TRAIN[1], cfg.d_model),
+                    generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    with torch.no_grad():
+        want = ffn.ffn_forward(bp, x, cfg, free)
+        got = ffn.ffn_forward(placed_bp, x, cfg, tp)
+    tp_err = float((got - want).abs().max() / want.abs().max())
+    out["explicit_tp_ffn"] = {"shape": list(x.shape), "max_rel_err": tp_err,
+                              "bit_equal": bool(torch.equal(got, want)), "seconds": _now() - t}
+    check(tp_err <= MESH_TP_TOL, f"mesh: explicit-TP FFN {out['explicit_tp_ffn']}")
+    del bp, placed_bp, x, want, got
+
+    # training: the same initial state on the mesh and whole
+    b, s, steps, mb = MESH_TRAIN
+    tc = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=steps + 1, microbatches=mb,
+                     grad_compression=True)
+    pipe = SyntheticTokenPipeline(cfg, b, s, seed=0, device=dev)
+    batches = [_split(pipe.batch(i), mb) for i in range(steps)]
+    placed = distribute_params(_tree_map(torch.clone, params), specs, on_mesh)
+    runs = {}
+    for name, rt, p in (("mesh", on_mesh, placed), ("free", free, params)):
+        state = {"params": p, "opt": adamw_init(p), "err": compression_init(p)}
+        step_fn = make_train_step(cfg, rt, tc)
+        losses, norms, secs = [], [], []
+        for batch in batches:
+            t = _now()
+            state, m = step_fn(state, batch)
+            secs.append(_now() - t)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        runs[name] = (state, losses, norms, secs)
+    (sm, lm_, nm, secs_m), (sf, lf, nf, secs_f) = runs["mesh"], runs["free"]
+    bitwise = lm_ == lf and nm == nf and all(
+        torch.equal(full(a), b) for a, b in zip(leaves(sm["params"]), leaves(sf["params"])))
+    worst = max(max(abs(a - c) / abs(c) for a, c in zip(lm_, lf)),
+                max(abs(a - c) / abs(c) for a, c in zip(nm, nf)))
+    out["train"] = {"batch": b, "seq": s, "steps": steps, "microbatches": mb,
+                    "grad_compression": True, "dtype": "float32", "losses": lm_,
+                    "grad_norms": nm, "mesh_free_losses": lf, "max_rel_diff": worst,
+                    "bit_equal": bitwise, "step_s_mesh": secs_m, "step_s_free": secs_f}
+    check(worst <= MESH_STEP_RTOL, f"mesh: train steps {out['train']}")
+    del runs, sf, params
+    torch.cuda.empty_cache()
+
+    # a checkpoint: mesh -> no mesh -> mesh
+    t = _now()
+    ck = Path(tempfile.mkdtemp(prefix="smoke_mesh_"))
+    cut = {"params": _params_cut(sm["params"], MESH_CKPT_LAYERS), "step": sm["opt"]["step"]}
+    save_checkpoint(ck / "a", steps - 1, cut)
+    off, step_a = restore_checkpoint(ck / "a", cut, dev)
+    ok_a = step_a == steps - 1 and all(torch.equal(full(a), b) for a, b in
+                                       zip(leaves(cut), leaves(off), strict=True))
+    save_checkpoint(ck / "b", steps - 1, off)
+    back, _ = restore_checkpoint(ck / "b", cut, on_mesh)
+    ok_b = all(torch.equal(local(a), local(b)) and type(a) is type(b)
+               for a, b in zip(leaves(cut), leaves(back), strict=True))
+    nbytes = sum(f.stat().st_size for f in (ck / "a").rglob("*") if f.is_file())
+    shutil.rmtree(ck)
+    out["checkpoint"] = {"layers": MESH_CKPT_LAYERS, "bytes": nbytes,
+                         "mesh_to_none_bitwise": ok_a, "none_to_mesh_bitwise": ok_b,
+                         "seconds": _now() - t}
+    check(ok_a and ok_b, f"mesh: checkpoint round trip {out['checkpoint']}")
+    del sm, cut, off, back, placed
+    torch.cuda.empty_cache()
+
+    # serving: bf16 weights placed on the mesh against the same whole
+    t = _now()
+    sb, sp, sn = MESH_SERVE
+    params16 = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(sb, sp)).astype(np.int32)
+    toks = {}
+    for name, rt, p in (("mesh", on_mesh, distribute_params(params16, specs, on_mesh)),
+                        ("free", free, params16)):
+        toks[name] = ServeEngine(cfg, rt, p, max_seq=sp + sn).generate(prompts, sn)
+    out["serve"] = {"batch": sb, "prompt": sp, "steps": sn, "dtype": "bfloat16",
+                    "tokens_equal": bool(np.array_equal(toks["mesh"], toks["free"])),
+                    "sample": toks["mesh"][0, :16].tolist(), "seconds": _now() - t}
+    check(out["serve"]["tokens_equal"], f"mesh: served tokens differ: {out['serve']}")
+    del params16
+    torch.cuda.empty_cache()
+    out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["seconds"] = _now() - t0
+    return out
 
 
 def lm_kinds(dev) -> None:
     """The other block kinds' paths (`kinds_model`), deepseek first while
-    nothing large is on the card. `chip_smoke.py --lm-kinds` runs them in a
-    process of their own, started at the smoke's start (no kernel); the
-    LM paths' process starts only once it has exited."""
-    for arch in KINDS_TF:
-        kinds_model(arch, dev)
+    nothing large is on the card, then the mesh's LM part (`mesh_moe` on
+    the MoE configs' layers while they are on the card, `mesh_tinyllama`
+    last, once they have left it) on a one-rank NCCL group's (1, 1) mesh,
+    made here first. `chip_smoke.py --lm-kinds` runs them in a process of
+    their own, started at the smoke's start (no kernel); the LM paths'
+    process starts only once it has exited."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t = _now()
+    mesh = make_local_mesh(1, 1, device="cuda")
+    group_s = _now() - t
+    try:
+        moe = {}
+        for arch in KINDS_TF:
+            got = kinds_model(arch, dev, mesh)
+            if got is not None:
+                moe[arch] = got
+        t = _now()
+        lm = mesh_tinyllama(mesh, dev)
+        emit({"phase": "mesh_lm", "backend": dist.get_backend(), "mesh": [1, 1],
+              "axis_names": list(mesh.mesh_dim_names), "group_start_s": group_s,
+              "moe": moe, "tinyllama": lm,
+              "seconds": group_s + sum(m["seconds"] for m in moe.values()) + _now() - t})
+    finally:
+        dist.destroy_process_group()
 
 
 LM_PATHS_FLAG = "--lm-paths"
@@ -3256,6 +3543,7 @@ def sharded_paths(dev) -> None:
     go to the kernels line."""
     X, Q, _, _ = corpus(dev)
     index, _ = phase_sharded(X, Q, exact_truth(X, Q))
+    phase_mesh_index(index, Q)
     phase_delta(index)
     rdur, state = phase_durable(index, Q)
     del index
@@ -3264,13 +3552,16 @@ def sharded_paths(dev) -> None:
     shutil.rmtree(state)
 
 
-def finish_sharded_paths(proc) -> dict:
+def finish_sharded_paths(proc) -> tuple[dict, dict]:
     """Waits for the sharded paths' process, relays its lines, and returns
-    its serve phase's launches."""
+    its serve phase's launches and its `mesh_index` line."""
     lines = finish_side(proc, SHARDED_TIMEOUT, "sharded paths")
     serve = next((json.loads(ln) for ln in lines if ln.startswith('{"phase": "serve"')), None)
     check(serve is not None, "the sharded paths printed no serve phase")
-    return serve["launches"]
+    mesh = next((json.loads(ln) for ln in lines if ln.startswith('{"phase": "mesh_index"')),
+                None)
+    check(mesh is not None, "the sharded paths printed no mesh_index line")
+    return serve["launches"], mesh
 
 
 def lm_paths(dev) -> None:
@@ -3326,14 +3617,40 @@ def finish_side(proc, timeout: float, label: str) -> list:
     return lines
 
 
-def finish_lm_kinds(proc) -> None:
+def finish_lm_kinds(proc) -> dict:
     """Waits for the other block kinds' process (`lm_kinds`), relays its
-    lines and checks that every arch printed its phase. Called before the
-    LM paths start: the `train` phase's 47 GB and deepseek's 60 GB never
-    share the card."""
+    lines, checks that every arch printed its phase, and returns its
+    `mesh_lm` line. Called before the LM paths start: the `train` phase's
+    47 GB and deepseek's 60 GB never share the card."""
     lines = finish_side(proc, KINDS_TIMEOUT, "other block kinds' paths")
     done = {json.loads(ln)["arch"] for ln in lines if ln.startswith('{"phase": "lm_kinds"')}
     check(done == set(KINDS_TF), f"lm_kinds printed {sorted(done)}, not {sorted(KINDS_TF)}")
+    mesh = next((json.loads(ln) for ln in lines if ln.startswith('{"phase": "mesh_lm"')), None)
+    check(mesh is not None, "the other block kinds' process printed no mesh_lm line")
+    return mesh
+
+
+def emit_mesh(lm: dict, index: dict) -> None:
+    """The `mesh` line: path 16's two parts, from the `--lm-kinds` and the
+    `--sharded-paths` processes, each of which checked its own."""
+    moe = lm["moe"]
+    tl = lm["tinyllama"]
+    check(set(moe) == {a for a in KINDS_TF if "deepseek" in a or "llama4" in a},
+          f"mesh: MoE checks ran on {sorted(moe)}")
+    emit({"phase": "mesh", "backend": lm["backend"], "mesh": lm["mesh"],
+          "axis_names": lm["axis_names"],
+          "moe": {a: {k: m[k] for k in ("max_rel_err", "bit_equal", "dropped",
+                                          "decode_max_rel_err", "decode_bit_equal")}
+                  for a, m in moe.items()},
+          "tinyllama": {"n_layers": tl["n_layers"], "d_model": tl["d_model"],
+                        "train_bit_equal": tl["train"]["bit_equal"],
+                        "train_max_rel_diff": tl["train"]["max_rel_diff"],
+                        "explicit_tp_max_rel_err": tl["explicit_tp_ffn"]["max_rel_err"],
+                        "serve_tokens_equal": tl["serve"]["tokens_equal"],
+                        "checkpoint_bitwise": tl["checkpoint"]["mesh_to_none_bitwise"]
+                        and tl["checkpoint"]["none_to_mesh_bitwise"]},
+          "shard_over_equal": index["equal"], "shard_over_launches": index["launches"],
+          "seconds": {"lm_kinds_process": lm["seconds"], "sharded_process": index["seconds"]}})
 
 
 def finish_lm_paths(proc) -> tuple[dict, list]:
@@ -3532,9 +3849,14 @@ def run_phases(dev, t_start: float, _build, procs: list) -> int:
     # models have left the card
     sharded = start_side(SHARDED_FLAG)
     procs.append(sharded)
-    finish_lm_kinds(kinds)
+    starts = {"sharded_paths_start_s": time.perf_counter() - t_start}
+    mesh_lm = finish_lm_kinds(kinds)
     lm = start_side(LM_PATHS_FLAG)
     procs.append(lm)
+    # how long the LM paths waited for the other kinds' process, if at all
+    starts["lm_paths_start_s"] = time.perf_counter() - t_start
+    emit({"phase": "side_starts", **starts,
+          "lm_paths_waited_s": starts["lm_paths_start_s"] - starts["sharded_paths_start_s"]})
     results, counts = phase_search(host_index, Q, truth, "search", HOST_P)
     phase_mixed(results, "mixed")
     del host_index
@@ -3543,8 +3865,9 @@ def run_phases(dev, t_start: float, _build, procs: list) -> int:
     band_counts = phase_band(bulk_index, Q, bulk_results)
     phase_nan(bulk_index, Q)
     phase_mlsh(bulk_index.X, Q, truth, bulk_results)
-    serve_counts = finish_sharded_paths(sharded)
+    serve_counts, mesh_index = finish_sharded_paths(sharded)
     knn_counts, knn_rows = finish_lm_paths(lm)
+    emit_mesh(mesh_lm, mesh_index)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

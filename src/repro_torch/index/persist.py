@@ -57,6 +57,7 @@ import torch
 from repro_torch.core.bulk_build import DeviceGraph
 from repro_torch.core.hnsw import GraphArrays
 from repro_torch.core.uhnsw import UHNSWParams
+from repro_torch.dist.sharding import process_index
 from repro_torch.index.compressed import CompressedBand
 from repro_torch.index.segment import SegmentedGraphs
 from repro_torch.index.sharded import ShardedUHNSW
@@ -361,7 +362,7 @@ def write_segment_rows(index: ShardedUHNSW, seg: int, gids: np.ndarray,
         index.X = index._X_owned = index.X.clone()
     index.X[torch.from_numpy(gids).to(dev)] = rows
     segs = index.segments
-    segs.X[seg, :rows.shape[0]] = rows
+    segs.write_rows(seg, rows)
     # the next compaction restacks from the per-graph data
     segs.graphs1[seg].data = rows
     segs.graphs2[seg].data = rows
@@ -418,6 +419,10 @@ class DurableIndex:
       keep_snapshots: how many newest snapshots `prune()` retains (floored
         at 1); WALs are kept from one sequence before the oldest retained
         snapshot onward.
+
+    Under a process group of more than one rank (an index placed by
+    `shard_over`), only rank 0 appends to the WAL and writes snapshots;
+    every rank applies the same inserts.
     """
 
     def __init__(self, index: ShardedUHNSW, directory, sync: bool = True,
@@ -429,6 +434,7 @@ class DurableIndex:
         snaps = list_snapshots(self.directory)
         self._seq = snaps[-1][0] if snaps else None
         self._wal: WriteAheadLog | None = None
+        self._lead = process_index() == 0     # the rank that writes
         index.on_compact = self._on_compact
 
     @classmethod
@@ -451,8 +457,10 @@ class DurableIndex:
     def save(self) -> Path:
         """Rotate now: snapshot the current state, open a fresh WAL."""
         seq = 0 if self._seq is None else self._seq + 1
-        path = save_snapshot(self.index, self.directory, seq=seq)
         self._seq = seq
+        if not self._lead:
+            return snapshot_path(self.directory, seq)
+        path = save_snapshot(self.index, self.directory, seq=seq)
         if self._wal is not None:
             self._wal.close()
         self._wal = WriteAheadLog(wal_path(self.directory, seq), sync=self.sync)
@@ -484,7 +492,9 @@ class DurableIndex:
     def _on_compact(self):
         self.save()
 
-    def _wal_required(self) -> WriteAheadLog:
+    def _wal_required(self) -> WriteAheadLog | None:
+        if not self._lead:
+            return None
         if self._wal is None:
             raise RuntimeError("DurableIndex has no open WAL — construct it with "
                                "DurableIndex.create/recover (or call save()) first")
@@ -495,7 +505,8 @@ class DurableIndex:
         wal = self._wal_required()
         gid = self.index.n
         v = vec.detach().cpu().numpy() if torch.is_tensor(vec) else vec
-        wal.append([gid], np.asarray(v, np.float32).reshape(1, -1))
+        if wal is not None:
+            wal.append([gid], np.asarray(v, np.float32).reshape(1, -1))
         out = self.index.add(v)
         if out != gid:
             raise RuntimeError(f"insert took id {out}, the WAL logged {gid}")
@@ -508,7 +519,8 @@ class DurableIndex:
         vecs = np.ascontiguousarray(vecs, dtype=np.float32)
         wal = self._wal_required()
         gid0 = self.index.n
-        wal.append(np.arange(gid0, gid0 + len(vecs)), vecs)
+        if wal is not None:
+            wal.append(np.arange(gid0, gid0 + len(vecs)), vecs)
         return [self.index.add(v) for v in vecs]
 
     def __getattr__(self, name):

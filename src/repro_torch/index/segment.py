@@ -71,6 +71,13 @@ def build_segment_pair(data, m: int, seed: int, bulk: bool | None = None,
     return g1, g2
 
 
+def take_segments(arrays: GraphArrays, sel: torch.Tensor) -> GraphArrays:
+    """The stacked segments `sel` (a 1-D index tensor) of a stack (copies)."""
+    return GraphArrays(arrays.adj0[sel], [a[sel] for a in arrays.upper_adj],
+                       [g[sel] for g in arrays.upper_g2l], arrays.entry[sel], arrays.n,
+                       arrays.metric_p)
+
+
 def _stack_uniform(graphs) -> GraphArrays:
     """pad_to every graph to the common shape envelope, then stack."""
     arrays = [GraphArrays.from_graph(g) for g in graphs]
@@ -101,6 +108,8 @@ class SegmentedGraphs:
     arrays2: GraphArrays = field(init=False)
     X: torch.Tensor = field(init=False)          # (S, n_pad, d) segment rows
     node_ids: torch.Tensor = field(init=False)   # (S, n_pad) int32, -1 pad
+    # the segments [lo, hi) the stacks hold on this rank (`hold`), None: all
+    held: tuple[int, int] | None = field(init=False, default=None)
 
     def __post_init__(self):
         self._restack()
@@ -117,7 +126,30 @@ class SegmentedGraphs:
     def device(self) -> torch.device:
         return self.graphs1[0].data.device
 
+    def hold(self, block: tuple[int, int] | None) -> None:
+        """Keep only the segments [lo, hi) in the stacks (a mesh rank's
+        share: `ShardedUHNSW.shard_over`), in the whole stack's shape
+        envelope; None: every segment. The per-segment graphs stay whole."""
+        if block == self.held:
+            return
+        if self.held is not None:
+            self._restack()
+        if block is not None:
+            lo, hi = block
+            sel = torch.arange(lo, hi, device=self.X.device)
+            self.arrays1 = take_segments(self.arrays1, sel)
+            self.arrays2 = take_segments(self.arrays2, sel)
+            self.X, self.node_ids = self.X[lo:hi].clone(), self.node_ids[lo:hi].clone()
+            self.held = (lo, hi)
+
+    def write_rows(self, seg: int, rows: torch.Tensor) -> None:
+        """Segment seg's rows in the stacked X, where this rank holds it."""
+        lo, hi = self.held if self.held is not None else (0, self.num_segments)
+        if lo <= seg < hi:
+            self.X[seg - lo, :rows.shape[0]] = rows
+
     def _restack(self):
+        self.held = None
         self.arrays1 = _stack_uniform(self.graphs1)
         self.arrays2 = _stack_uniform(self.graphs2)
         n_pad = max(self.arrays1.n, self.arrays2.n)

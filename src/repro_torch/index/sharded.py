@@ -24,7 +24,20 @@ Streaming inserts go to the delta buffer; at capacity it compacts into a
 new frozen segment built with the index's build method. Ids are assigned
 once and never change. Quarantined segments (`index.health`) are left out
 of the search, and every result reports the exact share of the corpus it
-covered. The mesh placement of the reference (`shard_over`) is not ported.
+covered.
+
+Placement (`ShardedUHNSW.shard_over(rt)`, reference :387): the stacked
+segment axis goes over the first dp axis of the mesh whose size D divides
+S, replicated when none does; each rank then holds its S / D segments of
+the stacks (arrays1, arrays2, segments.X, node_ids: `SegmentedGraphs.hold`)
+while the frozen rows X stay whole, as in the reference. A search over any
+selection of segments (all, the alive ones, two_phase's probe and spill
+lists, a round_robin turn) runs each rank's held ones through the folded
+beam loop; the per-segment lists are assembled on every rank (a sum over
+the axis of lists that each rank fills where it holds the segment), then
+merged and verified alike on every rank: ids, distances and counters
+equal the unplaced search's. Compaction re-applies the placement; a
+restored segment's rows are written where they are held.
 """
 
 from __future__ import annotations
@@ -50,7 +63,12 @@ from repro_torch.core.uhnsw import (
 from repro_torch.index.compressed import build_band, energy_order
 from repro_torch.index.delta import DeltaBuffer
 from repro_torch.index.health import SegmentHealthTracker
-from repro_torch.index.segment import SegmentedGraphs, build_segment_pair, build_segments
+from repro_torch.index.segment import (
+    SegmentedGraphs,
+    build_segment_pair,
+    build_segments,
+    take_segments,
+)
 
 
 @dataclass(frozen=True)
@@ -127,6 +145,74 @@ def _fold(arrays: GraphArrays, X: torch.Tensor, node_ids: torch.Tensor, b: int):
     return flat, X.reshape(sentinel, -1), node_ids.reshape(-1)
 
 
+@dataclass(frozen=True)
+class SegmentPlacement:
+    """A stacked segment axis placed over one mesh axis of a Runtime."""
+
+    rt: object
+    axis: str
+
+    @property
+    def parts(self) -> int:
+        return int(self.rt.mesh.mesh.shape[self.rt.mesh.mesh_dim_names.index(self.axis)])
+
+    def block(self, s: int) -> tuple[int, int] | None:
+        """This rank's segments [lo, hi) of a stack of s, or None (D does
+        not divide s: replicated)."""
+        if s % self.parts:
+            return None
+        n = s // self.parts
+        r = self.rt.coord(self.axis)
+        return r * n, (r + 1) * n
+
+    def assemble(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-segment results, each rank's own rows filled and the others
+        0, summed over the axis: every rank then holds every row (x + 0 is
+        x, bit for bit)."""
+        from repro_torch.dist import comm
+
+        return comm.all_reduce(x, self.rt, (self.axis,))
+
+
+def _search_fold(arrays: GraphArrays, X: torch.Tensor, node_ids: torch.Tensor, Q, ef: int,
+                 t: int, max_hops: int, expand_width: int, thresh):
+    """The folded beam loop over a stack of s segments -> per segment
+    (gids (s, B, t), dists (s, B, t), n_b (s, B), hops (s, B), poisoned
+    (s, B)), the guards applied."""
+    b, dev = Q.shape[0], Q.device
+    s = X.shape[0]
+    flat, xf, nf = _fold(arrays, X, node_ids, b)
+    qf = Q.repeat(s, 1)
+    tf = None if thresh is None else torch.as_tensor(
+        thresh, dtype=torch.float32, device=dev).repeat(s)
+    ids, dists, nb, hops = knn_search(flat, xf, qf, ef=ef, t=t, max_hops=max_hops,
+                                      expand_width=expand_width, thresh=tf)
+    n_all = flat.n
+    valid = ids < n_all
+    g = torch.where(valid, nf[ids.long().clamp(0, n_all - 1)], -1)
+    d = torch.where(valid & (g >= 0), dists, torch.inf)
+    bad = (g >= 0) & ~torch.isfinite(d)
+    pois = bad.any(1)
+    g = torch.where(bad, -1, g)
+    d = torch.where(bad, torch.inf, d)
+    diff = torch.abs(qf - xf[flat.entry])
+    entry_d = (diff if arrays.metric_p == 1.0 else diff * diff).sum(1)
+    pois = pois | ~torch.isfinite(entry_d)
+    return (g.reshape(s, b, t), d.reshape(s, b, t), nb.reshape(s, b), hops.reshape(s, b),
+            pois.reshape(s, b))
+
+
+def _merge_segments(g, d, nb, hops, pois, t: int):
+    """Per-segment lists (S, B, t), segment-major, -> the stable-sort merge
+    (gids (B, t) int32, dists (B, t)) and n_b, hops (summed), poisoned."""
+    s, b = g.shape[0], g.shape[1]
+    g = g.permute(1, 0, 2).reshape(b, s * t)
+    d = d.permute(1, 0, 2).reshape(b, s * t)
+    sd, order = torch.sort(d, dim=1, stable=True)
+    return (g.gather(1, order[:, :t]).to(torch.int32), sd[:, :t],
+            nb.sum(0, dtype=torch.int32), hops.sum(0, dtype=torch.int32), pois.any(0))
+
+
 def segmented_knn_search(arrays: GraphArrays, X: torch.Tensor, node_ids: torch.Tensor,
                          Q: torch.Tensor, ef: int, t: int, max_hops: int = 4096,
                          expand_width: int = 1, thresh: torch.Tensor | None = None,
@@ -151,45 +237,15 @@ def segmented_knn_search(arrays: GraphArrays, X: torch.Tensor, node_ids: torch.T
     (B, t) root-free base distances; n_b (B,); hops (B,); poisoned (B,)
     bool), n_b and hops summed over the segments.
     """
-    b, dev = Q.shape[0], Q.device
     if alive is not None:
-        sel = torch.as_tensor(np.flatnonzero(np.asarray(alive, dtype=bool)), device=dev)
+        sel = torch.as_tensor(np.flatnonzero(np.asarray(alive, dtype=bool)), device=Q.device)
         if sel.numel() == 0:
             raise ValueError("no alive segment to search")
         if sel.numel() < X.shape[0]:
-            arrays = _take(arrays, sel)
+            arrays = take_segments(arrays, sel)
             X, node_ids = X[sel], node_ids[sel]
-    s = X.shape[0]
-    flat, xf, nf = _fold(arrays, X, node_ids, b)
-    qf = Q.repeat(s, 1)
-    tf = None if thresh is None else torch.as_tensor(
-        thresh, dtype=torch.float32, device=dev).repeat(s)
-    ids, dists, nb, hops = knn_search(flat, xf, qf, ef=ef, t=t, max_hops=max_hops,
-                                      expand_width=expand_width, thresh=tf)
-    n_all = flat.n
-    valid = ids < n_all
-    g = torch.where(valid, nf[ids.long().clamp(0, n_all - 1)], -1)
-    d = torch.where(valid & (g >= 0), dists, torch.inf)
-    bad = (g >= 0) & ~torch.isfinite(d)
-    pois = bad.any(1)
-    g = torch.where(bad, -1, g)
-    d = torch.where(bad, torch.inf, d)
-    diff = torch.abs(qf - xf[flat.entry])
-    entry_d = (diff if arrays.metric_p == 1.0 else diff * diff).sum(1)
-    pois = pois | ~torch.isfinite(entry_d)
-    g = g.reshape(s, b, t).permute(1, 0, 2).reshape(b, s * t)
-    d = d.reshape(s, b, t).permute(1, 0, 2).reshape(b, s * t)
-    sd, order = torch.sort(d, dim=1, stable=True)
-    return (g.gather(1, order[:, :t]).to(torch.int32), sd[:, :t],
-            nb.reshape(s, b).sum(0, dtype=torch.int32),
-            hops.reshape(s, b).sum(0, dtype=torch.int32), pois.reshape(s, b).any(0))
-
-
-def _take(arrays: GraphArrays, sel: torch.Tensor) -> GraphArrays:
-    """The stacked segments `sel` (a 1-D index tensor) of a stack."""
-    return GraphArrays(arrays.adj0[sel], [a[sel] for a in arrays.upper_adj],
-                       [g[sel] for g in arrays.upper_g2l], arrays.entry[sel], arrays.n,
-                       arrays.metric_p)
+    return _merge_segments(*_search_fold(arrays, X, node_ids, Q, ef, t, max_hops, expand_width,
+                                         thresh), t)
 
 
 def _merge_sorted(gs, ds, fs, t: int):
@@ -229,8 +285,8 @@ class ShardedUHNSW:
         self.sharded_params = sharded_params or ShardedParams()
         self.sharded_params.validate_for(segments.num_segments, self.params.t)
         self.health = SegmentHealthTracker(segments.num_segments)
-        # (probe, spill) and single-segment sub-stacks, by base graph, probe
-        # count and alive set; cleared when compaction restacks
+        # the policies' sub-stacks (probe, spill, one turn's segment), by
+        # base graph and segments; cleared when compaction restacks
         self._phase_cache: dict = {}
         # the frozen rows only: delta vectors join at compaction
         self.X = _device_data(data, segments.device)
@@ -245,6 +301,10 @@ class ShardedUHNSW:
         # compaction is in place, when the delta is empty; None = no
         # durability layer
         self.on_compact = None
+        # the mesh placement (`shard_over`): its Runtime, re-applied after a
+        # restack, and the segment axis' placement (None: replicated)
+        self._rt = None
+        self._place: SegmentPlacement | None = None
 
     @classmethod
     def build(cls, data, num_segments: int = 4, m: int = 16,
@@ -314,6 +374,25 @@ class ShardedUHNSW:
     def _queries(self, Q) -> torch.Tensor:
         return torch.as_tensor(Q, dtype=torch.float32, device=self.X.device)
 
+    def shard_over(self, rt) -> "ShardedUHNSW":
+        """Place the stacked segment axis over the mesh's data axes: the
+        first dp axis whose size D divides S, and this rank then holds its
+        S / D segments of the stacks (`SegmentedGraphs.hold`); replicated
+        (whole stacks, the search run whole on every rank) when none does.
+        The Runtime is kept, so that compaction re-applies the placement.
+        rt None unplaces the index."""
+        self._rt = rt
+        self._phase_cache.clear()
+        self._place = None
+        if rt is not None and rt.distributed:
+            s = self.num_segments
+            shape = dict(zip(rt.axis_names, rt.mesh.mesh.shape))
+            axis = next((a for a in rt.dp_axes if s % int(shape[a]) == 0), None)
+            if axis is not None:
+                self._place = SegmentPlacement(rt, axis)
+        self.segments.hold(None if self._place is None else self._place.block(self.num_segments))
+        return self
+
     def search(self, Q, p, k: int):
         """Batched ANNS-U-Lp over all alive segments + the delta buffer."""
         if is_static_p(p):
@@ -344,12 +423,10 @@ class ShardedUHNSW:
         threshold rank; `alive` restricts the search to those segments
         (None: the health tracker's alive set)."""
         Q = self._queries(Q)
-        seg = self.segments
-        arrays = seg.arrays1 if base_p == 1.0 else seg.arrays2
         alive_list = (self._alive_segments() if alive is None
                       else sorted(int(i) for i in alive))
         ids, dists, n_b, hops, nb_probe, nb_spill, n_cand_spill, pois = \
-            self._segment_candidates(arrays, Q, k=k, alive=alive_list)
+            self._segment_candidates(base_p, Q, k=k, alive=alive_list)
         return CandidateSet(ids=ids, base_dists=dists, n_b=n_b, hops=hops, base_p=base_p,
                             n_b_probe=nb_probe, n_b_spill=nb_spill, n_cand_spill=n_cand_spill,
                             poisoned=pois, coverage_frac=self.coverage_frac(alive_list))
@@ -405,35 +482,71 @@ class ShardedUHNSW:
         sizes = [g.n for g in self.segments.graphs1]
         return sorted(range(len(sizes)), key=lambda i: (-sizes[i], i))
 
-    def _stack_of(self, base_p: float, sel: list[int]):
+    def _held_stack(self, base_p: float, sel: list[int], cache: bool = False):
+        """The stacks of segments `sel` (global ids, all held on this rank):
+        the held stacks themselves when `sel` is all of them, None when it
+        is empty, else a sub-stack (kept in the phase cache if `cache`)."""
         seg = self.segments
-        arrays = seg.arrays1 if base_p == 1.0 else seg.arrays2
-        idx = torch.as_tensor(sel, dtype=torch.int64, device=seg.X.device)
-        return _take(arrays, idx), seg.X[idx], seg.node_ids[idx]
+        lo, hi = seg.held if seg.held is not None else (0, self.num_segments)
+        if sel == list(range(lo, hi)):
+            return (seg.arrays1 if base_p == 1.0 else seg.arrays2), seg.X, seg.node_ids
+        if not sel:
+            return None
+        key = ("sel", base_p, tuple(sel))
+        hit = self._phase_cache.get(key)
+        if hit is None:
+            arrays = seg.arrays1 if base_p == 1.0 else seg.arrays2
+            idx = torch.as_tensor([i - lo for i in sel], dtype=torch.int64, device=seg.X.device)
+            hit = take_segments(arrays, idx), seg.X[idx], seg.node_ids[idx]
+            if cache:
+                self._phase_cache[key] = hit
+        return hit
+
+    def _held(self, sel: list[int]) -> list[int]:
+        held = self.segments.held
+        return sel if held is None else [i for i in sel if held[0] <= i < held[1]]
+
+    def _phase_order(self, alive: list[int] | None = None) -> list[int]:
+        """The probe order (largest segments first: their running bound is
+        the tightest; oldest first among equals) over the alive segments."""
+        order = self._probe_order()
+        return order if alive is None else [i for i in order if i in set(alive)]
 
     def _phase_stacks(self, base_p: float, probe: int, alive_key: tuple | None = None):
-        """Cached (probe, spill) sub-stacks of the segment axis, by base
+        """Cached (probe, spill) sub-stacks of the held segments, by base
         graph, probe count and alive set (dead segments are left out)."""
-        key = ("split", base_p, probe, alive_key)
-        hit = self._phase_cache.get(key)
-        if hit is None:
-            order = self._probe_order()
-            if alive_key is not None:
-                order = [i for i in order if i in set(alive_key)]
-            hit = (self._stack_of(base_p, order[:probe]), self._stack_of(base_p, order[probe:]))
-            self._phase_cache[key] = hit
-        return hit
+        order = self._phase_order(None if alive_key is None else list(alive_key))
+        return (self._held_stack(base_p, self._held(order[:probe]), cache=True),
+                self._held_stack(base_p, self._held(order[probe:]), cache=True))
 
-    def _segment_stack(self, base_p: float, i: int):
-        """Cached one-segment sub-stack (round_robin turns)."""
-        key = ("one", base_p, i)
-        hit = self._phase_cache.get(key)
-        if hit is None:
-            hit = self._stack_of(base_p, [i])
-            self._phase_cache[key] = hit
-        return hit
+    def _search_sel(self, base_p: float, sel: list[int], Q, ef: int, t: int, width: int,
+                    thresh=None, cache: bool = False):
+        """The merged candidates of segments `sel` (global ids, in order),
+        as `segmented_knn_search` over their sub-stack gives them. Placed,
+        each rank searches the segments of `sel` it holds, and the
+        per-segment lists are assembled on every rank before the merge.
+        cache: keep the sub-stack (the policies' fixed phase and turn
+        stacks) in the phase cache."""
+        prm = self.params
+        mine = self._held(sel)
+        stacks = self._held_stack(base_p, mine, cache)
+        if self._place is None:
+            return _merge_segments(*_search_fold(*stacks, Q, ef, t, prm.max_hops, width,
+                                                 thresh), t)
+        b, dev = Q.shape[0], Q.device
+        g = torch.zeros((len(sel), b, t), dtype=torch.int32, device=dev)
+        d = torch.zeros((len(sel), b, t), dtype=torch.float32, device=dev)
+        nb, hops, pois = (torch.zeros((len(sel), b), dtype=dt, device=dev)
+                          for dt in (torch.int32, torch.int32, torch.uint8))
+        if stacks is not None:
+            got = _search_fold(*stacks, Q, ef, t, prm.max_hops, width, thresh)
+            pos = torch.as_tensor([sel.index(i) for i in mine], device=dev)
+            for full, part in zip((g, d, nb, hops, pois), got):
+                full[pos] = part.to(full.dtype)
+        g, d, nb, hops, pois = (self._place.assemble(x) for x in (g, d, nb, hops, pois))
+        return _merge_segments(g, d, nb, hops, pois.bool(), t)
 
-    def _segment_candidates(self, arrays, Q, k: int | None = None,
+    def _segment_candidates(self, base_p: float, Q, k: int | None = None,
                             alive: list[int] | None = None):
         """Policy-dispatched candidate generation -> (gids (B, t), dists,
         n_b, hops, n_b_probe, n_b_spill, n_cand_spill, poisoned). Over an
@@ -446,50 +559,37 @@ class ShardedUHNSW:
         if not alive:
             raise RuntimeError("no alive segments to search: every frozen segment is "
                                "quarantined; recover or rebuild the index")
-        all_alive = len(alive) == s_total
         sizes = [g.n for g in self.segments.graphs1]
         t = min(prm.t, sum(sizes[i] for i in alive))
         ef = max(prm.ef or 2 * prm.t, t)
         width = min(prm.expand_width, ef)
         s = len(alive)
         probe = max(1, min(sp.probe, s))
-        seg = self.segments
         if sp.policy == "independent" or s == 1 or (sp.policy == "two_phase" and probe >= s):
-            mask = None
-            if not all_alive:
-                mask = np.zeros(s_total, dtype=bool)
-                mask[alive] = True
-            gids, dists, n_b, hops, pois = segmented_knn_search(
-                arrays, seg.X, seg.node_ids, Q, ef=ef, t=t, max_hops=prm.max_hops,
-                expand_width=width, alive=mask)
+            gids, dists, n_b, hops, pois = self._search_sel(base_p, alive, Q, ef, t, width)
             zero = torch.zeros_like(n_b)
             return gids, dists, n_b, hops, n_b, zero, zero, pois
         rank = sp.resolve_thresh_rank(t, s, k)
-        base_p = arrays.metric_p
-        alive_key = None if all_alive else tuple(alive)
+        order = self._phase_order(alive)
         if sp.policy == "two_phase":
-            (arr_a, x_a, ni_a), (arr_b, x_b, ni_b) = self._phase_stacks(base_p, probe, alive_key)
-            g_a, d_a, nb_a, hops_a, pois_a = segmented_knn_search(
-                arr_a, x_a, ni_a, Q, ef=ef, t=t, max_hops=prm.max_hops, expand_width=width)
+            g_a, d_a, nb_a, hops_a, pois_a = self._search_sel(
+                base_p, order[:probe], Q, ef, t, width, cache=True)
             thresh = d_a[:, rank - 1]
             # a rank-r bound admits up to r merged entrants per segment, and
             # the caller's k must fit: the spill beam's width floors at both
             ef_b = max(k or 1, rank, int(round(ef * sp.ef_shrink)))
             t_b = min(t, ef_b)
-            g_b, d_b, nb_b, hops_b, pois_b = segmented_knn_search(
-                arr_b, x_b, ni_b, Q, ef=ef_b, t=t_b, max_hops=prm.max_hops,
-                expand_width=min(width, ef_b), thresh=thresh)
+            g_b, d_b, nb_b, hops_b, pois_b = self._search_sel(
+                base_p, order[probe:], Q, ef_b, t_b, min(width, ef_b), thresh=thresh, cache=True)
             gids, dists, flags = merge_phase_lists(g_a, d_a, g_b, d_b, t)
             n_cand_spill = ((flags == 1) & (gids >= 0)).sum(1, dtype=torch.int32)
             return (gids, dists, nb_a + nb_b, hops_a + hops_b, nb_a, nb_b, n_cand_spill,
                     pois_a | pois_b)
         # round_robin: every turn inherits the running merged rank-r bound
-        order = [i for i in self._probe_order() if i in set(alive)]
         for turn, i in enumerate(order):
-            arr_i, x_i, ni_i = self._segment_stack(base_p, i)
-            g_i, d_i, nb_i, hops_i, pois_i = segmented_knn_search(
-                arr_i, x_i, ni_i, Q, ef=ef, t=t, max_hops=prm.max_hops, expand_width=width,
-                thresh=dists[:, rank - 1] if turn else None)
+            g_i, d_i, nb_i, hops_i, pois_i = self._search_sel(
+                base_p, [i], Q, ef, t, width, thresh=dists[:, rank - 1] if turn else None,
+                cache=True)
             if turn == 0:
                 gids, dists, pois = g_i, d_i, pois_i
                 flags = torch.zeros_like(g_i)
@@ -636,5 +736,7 @@ class ShardedUHNSW:
         self._phase_cache.clear()
         self._band = None
         self._scan_cache = None
+        if self._rt is not None:     # S grew: place the new stack
+            self.shard_over(self._rt)
         if self.on_compact is not None:
             self.on_compact()

@@ -9,8 +9,12 @@ Counterpart of `repro.launch.serve`:
       --n 200000 --requests 1024 --state-dir DIR
 
 It runs on the CUDA card unless given --device cpu. The LM serves every
-arch, on one card: a mesh (--data or --model other than 1) exits with an
-error naming the ROADMAP item that ports it.
+arch, on one card or on a mesh of --data x --model ranks started by
+torch.distributed.run (weights placed by their specs, each rank given the
+same prompts; only rank 0 prints):
+
+  python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.serve --smoke --data 2 --device cpu
 """
 
 from __future__ import annotations
@@ -30,18 +34,28 @@ def serve_lm(args) -> int:
     reference draws them; prints what the reference's `serve_lm` prints."""
     import torch
 
-    from repro_torch.dist.sharding import Runtime
+    from repro_torch.dist.sharding import distribute_params, process_index
+    from repro_torch.launch.mesh import runtime_from_args
     from repro_torch.models.model import init_params
+    from repro_torch.models.params import param_specs
+
+    rt, dev = runtime_from_args(args, moe_decode_gather=args.moe_decode_gather)
+    try:
+        cfg = get_arch(args.arch, smoke=args.smoke)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+        if rt.distributed:
+            params = distribute_params(params, param_specs(cfg), rt)
+        return _serve_lm(args, cfg, rt, params, dev, process_index() == 0)
+    finally:
+        if rt.distributed:
+            torch.distributed.destroy_process_group()
+
+
+def _serve_lm(args, cfg, rt, params, dev, lead: bool) -> int:
+    import torch
+
     from repro_torch.serve.engine import ServeEngine
 
-    dev = torch.device(args.device)
-    if dev.type == "cuda":
-        # keep every f32 and bf16 product's partial sums in f32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    cfg = get_arch(args.arch, smoke=args.smoke)
-    rt = Runtime(moe_decode_gather=args.moe_decode_gather)
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
     eng = ServeEngine(cfg, rt, params, max_seq=args.prompt_len + args.steps)
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, size=(args.batch, args.prompt_len)
@@ -52,9 +66,10 @@ def serve_lm(args) -> int:
     out = eng.generate(prompts, steps=args.steps, temperature=args.temperature)
     dt = time.time() - t0
     tok = args.batch * args.steps
-    print(f"generated {out.shape} tokens in {dt:.1f}s "
-          f"({tok / dt:.1f} tok/s on {dev.type})")
-    print("sample:", out[0][:16].tolist())
+    if lead:
+        print(f"generated {out.shape} tokens in {dt:.1f}s "
+              f"({tok / dt:.1f} tok/s on {dev.type})")
+        print("sample:", out[0][:16].tolist())
     return 0
 
 
@@ -244,11 +259,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.retrieval:
         return serve_retrieval(args)
-    from repro_torch.dist.sharding import MESH_ITEM
+    from repro_torch.launch.mesh import check_mesh_args
 
-    if args.data != 1 or args.model != 1:
-        ap.error(f"--data {args.data} --model {args.model}: the port serves on one card; "
-                 f"a mesh waits for {MESH_ITEM}")
+    check_mesh_args(ap, args)
     return serve_lm(args)
 
 

@@ -8,9 +8,14 @@ Counterpart of `repro.launch.train`, with its flags and its printed lines:
   # same --ckpt-dir to resume from the last checkpoint
   ... --fail-at-step 7
 
-It runs on the CUDA card unless given --device cpu. Every arch trains, on
-one card only: --data or --model other than 1 exits with an error naming
-ROADMAP item 11(c).
+It runs on the CUDA card unless given --device cpu. Every arch trains. On
+a mesh of --data x --model ranks, started by torch.distributed.run (the
+ranks come from its environment), the state is placed by its specs and
+only rank 0 prints and writes metrics:
+
+  python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.train --smoke --data 2 --device cpu ...
+
 Use launch/supervisor.py for automatic restart on failure.
 """
 
@@ -60,27 +65,36 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="where the model lives and trains")
     args = ap.parse_args(argv)
 
-    from repro_torch.dist.sharding import MESH_ITEM
+    from repro_torch.launch.mesh import check_mesh_args, runtime_from_args
 
-    if args.data != 1 or args.model != 1:
-        ap.error(f"--data {args.data} --model {args.model}: the port trains on one card; "
-                 f"a mesh waits for {MESH_ITEM}")
+    check_mesh_args(ap, args)
     cfg = get_arch(args.arch, smoke=args.smoke)
 
     import torch
 
+    rt, dev = runtime_from_args(args, remat=args.remat)
+    try:
+        return _train(args, cfg, rt, dev)
+    finally:
+        if rt.distributed:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, cfg, rt, dev) -> int:
+    import torch
+
     from repro_torch.checkpoint.store import AsyncCheckpointer, latest_step, restore_checkpoint
     from repro_torch.data.pipeline import SyntheticTokenPipeline
-    from repro_torch.dist.sharding import Runtime
+    from repro_torch.dist.sharding import process_index
     from repro_torch.train.monitor import HeartbeatMonitor
-    from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.step import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+        train_state_specs,
+    )
 
-    dev = torch.device(args.device)
-    if dev.type == "cuda":
-        # keep every f32 and bf16 product's partial sums in f32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    rt = Runtime(remat=args.remat)
+    lead = process_index() == 0     # prints, heartbeats and writes metrics
     tc = TrainConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                      total_steps=args.steps, microbatches=args.microbatches,
                      grad_compression=args.grad_compression)
@@ -89,19 +103,22 @@ def main(argv=None) -> int:
 
     start = 0
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
-        state, start = restore_checkpoint(args.ckpt_dir, state_skeleton(cfg, tc), dev)
+        skeleton = train_state_specs(cfg, tc) if rt.distributed else state_skeleton(cfg, tc)
+        state, start = restore_checkpoint(args.ckpt_dir, skeleton, rt if rt.distributed else dev)
         start += 1
-        print(f"resumed from step {start - 1}", flush=True)
+        if lead:
+            print(f"resumed from step {start - 1}", flush=True)
     else:
         state = init_train_state(cfg, rt, tc, torch.Generator(device=dev).manual_seed(args.seed),
                                  device=dev)
 
     ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
-    hb = HeartbeatMonitor(f"{args.ckpt_dir}/heartbeat.json") if args.ckpt_dir else None
+    hb = HeartbeatMonitor(f"{args.ckpt_dir}/heartbeat.json") if args.ckpt_dir and lead else None
     losses = []
     for step in range(start, args.steps):
         if step == args.fail_at_step:
-            print(f"FAULT-INJECTION: crashing at step {step}", flush=True)
+            if lead:
+                print(f"FAULT-INJECTION: crashing at step {step}", flush=True)
             sys.stdout.flush()
             raise SystemExit(42)
         batch = pipe.batch(step)
@@ -114,7 +131,7 @@ def main(argv=None) -> int:
         losses.append(loss)
         if hb:
             hb.beat(step, {"loss": loss})
-        if step % args.log_every == 0:
+        if lead and step % args.log_every == 0:
             print(f"step {step}: loss={loss:.4f} "
                   f"gnorm={float(metrics['grad_norm']):.3f} "
                   f"({time.time() - t0:.2f}s)", flush=True)
@@ -123,9 +140,10 @@ def main(argv=None) -> int:
     if ckpt:
         ckpt.save(args.steps - 1, state)
         ckpt.wait()
-    if args.metrics_out:
+    if lead and args.metrics_out:
         Path(args.metrics_out).write_text(json.dumps({"losses": losses}))
-    print(f"done: final loss {losses[-1] if losses else float('nan'):.4f}", flush=True)
+    if lead:
+        print(f"done: final loss {losses[-1] if losses else float('nan'):.4f}", flush=True)
     return 0
 
 

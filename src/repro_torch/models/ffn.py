@@ -1,10 +1,16 @@
 """Channel mixers: the dense FFN variants and the capacity MoE (plain
-PyTorch).
+PyTorch), off a mesh and on one.
 
-Counterpart of `repro.models.ffn` on one card: `ffn_forward` without
-explicit tensor parallelism, and `moe_forward` as the body of the
-reference's `shard_map` with one rank: every expert is local (e_loc = E),
-the FSDP all-gathers are the identity and so is the psum over 'model'.
+Counterpart of `repro.models.ffn`. Off a mesh (`Runtime.mesh` None),
+`moe_forward` is the body of the reference's `shard_map` with one rank:
+every expert is local (e_loc = E), the FSDP all-gathers are the identity
+and so is the psum over 'model'. On a mesh it is that body on this rank's
+shards (`_moe_mesh`): the rank routes its own batch rows, with the
+capacity of its dp shard's tokens (`_capacity(max(b * s // dp_size, 1))`,
+so routes drop per dp shard, as in the reference); it keeps e_loc = E /
+tp_size experts, whose weights are gathered over dp (ZeRO-3), and the
+scatter is summed over 'model'. `_moe_decode_gather` is the reference's
+weights-stationary decode: the tokens travel, the weights stay.
 
 Capacity semantics: each expert takes at most `_capacity(t)` of the routes
 to it, the highest combine weights first; the overflow drops. Ties (with
@@ -12,6 +18,11 @@ top-1 routing every weight is exactly 1.0) go to the lowest token index, as
 `jax.lax.top_k` breaks them, through a stable descending sort; the router's
 top-k over experts is chosen the same way. `moe_dropped` gives the dropped
 (token, expert) routes of the same selection.
+
+Weights come as full tensors (off a mesh, and training's gathered copy)
+or as DTensors (`dist.sharding.distribute_params`), whose shards each path
+takes as it needs them (`dist.sharding.full`, `dist.tp.model_slice`).
+Gradients cross the collectives by `dist.comm`'s rules.
 """
 
 from __future__ import annotations
@@ -20,6 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import comm
+from repro_torch.dist.sharding import P, full, is_dtensor, placements, window
+from repro_torch.dist.tp import col_matmul_ffn, model_slice, row_matmul_ffn
 from repro_torch.models.attention import rmsnorm
 
 
@@ -37,25 +51,31 @@ def _act(cfg: ArchConfig, gate_or_pre: torch.Tensor, pre: torch.Tensor | None = 
 
 def ffn_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, rt=None) -> torch.Tensor:
     """Pre-norm dense FFN: rmsnorm, up (and gate) projection, activation,
-    down projection. rt is taken for the reference's signature; one card
-    has no tensor-parallel form (`Runtime` refuses explicit_tp)."""
-    del rt
-    h = rmsnorm(x, params["ln"], cfg.norm_eps)
-    pre = torch.einsum("bsd,df->bsf", h, params["wi"])
+    down projection. Under rt.explicit_tp on a mesh the products are
+    `dist.tp`'s, on this rank's f columns (reference `ffn.py:48`)."""
+    h = rmsnorm(x, full(params["ln"]), cfg.norm_eps)
+    if rt is None or not rt.explicit_tp:
+        pre = torch.einsum("bsd,df->bsf", h, full(params["wi"]))
+        if cfg.ffn_act == "swiglu":
+            act = _act(cfg, torch.einsum("bsd,df->bsf", h, full(params["wg"])), pre)
+        else:
+            act = _act(cfg, pre)
+        return torch.einsum("bsf,fd->bsd", act, full(params["wo"]))
+    pre = col_matmul_ffn(h, params["wi"], rt)
     if cfg.ffn_act == "swiglu":
-        act = _act(cfg, torch.einsum("bsd,df->bsf", h, params["wg"]), pre)
+        act = _act(cfg, col_matmul_ffn(h, params["wg"], rt), pre)
     else:
         act = _act(cfg, pre)
-    return torch.einsum("bsf,fd->bsd", act, params["wo"])
+    return row_matmul_ffn(act, params["wo"], rt)
 
 
 def _shared_expert(params: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    pre = torch.einsum("bsd,df->bsf", h, params["ws_in"])
+    pre = torch.einsum("bsd,df->bsf", h, full(params["ws_in"]))
     if cfg.ffn_act == "swiglu":
-        act = _act(cfg, torch.einsum("bsd,df->bsf", h, params["ws_gate"]), pre)
+        act = _act(cfg, torch.einsum("bsd,df->bsf", h, full(params["ws_gate"])), pre)
     else:
         act = _act(cfg, pre)
-    return torch.einsum("bsf,fd->bsd", act, params["ws_out"])
+    return torch.einsum("bsf,fd->bsd", act, full(params["ws_out"]))
 
 
 def _capacity(t: int, cfg: ArchConfig) -> int:
@@ -96,9 +116,10 @@ def moe_dropped(params: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     (B, S, d)) that `moe_forward`'s capacity drops: routed to an expert that
     kept `_capacity(t)` routes of higher weight, or of equal weight and a
     lower token index. Its sum is the number of dropped (token, expert)
-    pairs."""
+    pairs. On a mesh, h is one dp shard's rows: its drops are the mesh
+    body's for that shard."""
     xt = h.reshape(-1, h.shape[-1])
-    gate = _route(params["router"], xt, cfg)
+    gate = _route(full(params["router"]), xt, cfg)
     top_gate, top_idx = _select(gate, _capacity(xt.shape[0], cfg))
     kept = torch.zeros_like(gate, dtype=torch.bool)
     e_ids = torch.arange(gate.shape[1], device=gate.device)[:, None].expand_as(top_idx)
@@ -106,37 +127,143 @@ def moe_dropped(params: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return (gate > 0) & ~kept
 
 
-def moe_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, rt=None) -> torch.Tensor:
-    """Capacity MoE (+ the shared experts), pre-norm. x: (B, S, d).
+def _experts(params: dict, cfg: ArchConfig, xe_in: torch.Tensor, pre_sum=None):
+    """The expert FFNs on gathered tokens xe_in (e_loc, cap, d): the up
+    (and gate) products, each passed through pre_sum when given, the
+    activation, and the down product -> (e_loc, cap, d_out)."""
+    def up(w):
+        y = torch.einsum("ecd,edf->ecf", xe_in, w)
+        return y if pre_sum is None else pre_sum(y)
 
-    The reference's `shard_map` body with one rank: route every token
-    (`_route`), keep each expert's top `_capacity(B * S)` routes
-    (`_select`), run the experts as batched products over (E, cap) gathered
-    tokens, weight each output by its gate (padding slots by 0) and
-    scatter-add into the tokens' rows (`index_add_`, in the outputs' dtype).
-    rt is taken for the signature: `rt.moe_decode_gather` (the
-    weights-stationary decode, `_moe_decode_gather`) runs only with dp_size >
-    1, never on one card, so it changes nothing here; its port comes with
-    the mesh (ROADMAP queue 1 item 11(c))."""
-    del rt
-    m = cfg.moe
-    h = rmsnorm(x, params["ln"], cfg.norm_eps)
+    pre = up(params["w_in"])
+    if cfg.ffn_act == "swiglu":
+        act = F.silu(up(params["w_gate"])) * pre
+    else:
+        act = _act(cfg, pre)
+    return torch.einsum("ecf,efd->ecd", act, params["w_out"])
+
+
+def _combine(ye: torch.Tensor, top_gate: torch.Tensor, top_idx: torch.Tensor, t: int):
+    """Each expert output weighted by its gate (padding slots by 0) and
+    scatter-added into its token's row (`index_add_`, in ye's dtype)."""
+    w_comb = torch.where(top_gate > 0, top_gate, 0.0).to(ye.dtype)
+    ye = ye * w_comb[:, :, None]
+    return torch.zeros((t, ye.shape[-1]), dtype=ye.dtype, device=ye.device).index_add_(
+        0, top_idx.reshape(-1), ye.reshape(-1, ye.shape[-1]))
+
+
+def _moe_local(params: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The body with one rank: every expert, capacity `_capacity(B * S)`."""
     b, s, d = h.shape
     t = b * s
     xt = h.reshape(t, d)
     top_gate, top_idx = _select(_route(params["router"], xt, cfg), _capacity(t, cfg))
     e, cap = top_idx.shape
-    xe = xt[top_idx.reshape(-1)].reshape(e, cap, d)
-    pre = torch.einsum("ecd,edf->ecf", xe, params["w_in"])
-    if cfg.ffn_act == "swiglu":
-        act = F.silu(torch.einsum("ecd,edf->ecf", xe, params["w_gate"])) * pre
+    ye = _experts(params, cfg, xt[top_idx.reshape(-1)].reshape(e, cap, d))
+    return _combine(ye, top_gate, top_idx, t).reshape(b, s, d)
+
+
+def _expert_block(w, rt, spec: P) -> torch.Tensor:
+    """This rank's block of an expert weight under `spec`: a DTensor placed
+    so gives its local shard (no collective), any other is taken whole
+    (`full`) and sliced, as a view of a full tensor."""
+    if is_dtensor(w) and tuple(w.placements) == placements(spec, rt.mesh):
+        return w.to_local()
+    w = full(w)
+    return w[window(tuple(w.shape), spec, rt)]
+
+
+def _e_loc(cfg: ArchConfig, rt) -> int:
+    e = cfg.moe.num_experts
+    if e % rt.tp_size:
+        raise ValueError(f"{e} experts do not divide over {rt.tp_size} 'model' ranks")
+    return e // rt.tp_size
+
+
+def _moe_mesh(params: dict, h: torch.Tensor, cfg: ArchConfig, rt) -> torch.Tensor:
+    """The reference's expert-parallel `shard_map` body (:164-230) on this
+    rank: its batch rows h (B_loc, S, d) routed by the full router, capacity
+    `_capacity(B_loc * S)` per local expert, this 'model' rank's e_loc
+    experts with their d gathered over dp, the scatter summed over 'model'.
+    Under full_dp (no 'model' split) every expert is local and nothing is
+    summed."""
+    b, s, d = h.shape
+    t = b * s
+    tp = (rt.tp_axis,)
+    split = not rt.full_dp
+    xt = h.reshape(t, d)
+    router = full(params["router"])
+    if split:
+        xt, router = comm.copy_to(xt, rt, tp), comm.copy_to(router, rt, tp)
+    e_loc = _e_loc(cfg, rt)
+    lo = rt.tp_rank * e_loc
+    gate = _route(router, xt, cfg)[:, lo:lo + e_loc]
+    top_gate, top_idx = _select(gate, _capacity(max(t, 1), cfg))
+    cap = top_idx.shape[1]
+    w = {k: model_slice(params[k], rt, 0) for k in ("w_in", "w_gate", "w_out") if k in params}
+    ye = _experts(w, cfg, xt[top_idx.reshape(-1)].reshape(e_loc, cap, d))
+    out = _combine(ye, top_gate, top_idx, t)
+    if split:
+        out = comm.reduce_from(out, rt, tp)
+    return out.reshape(b, s, d)
+
+
+def _moe_decode_gather(params: dict, h: torch.Tensor, cfg: ArchConfig, rt) -> torch.Tensor:
+    """Weights-stationary decode MoE (reference :79-161). h: this rank's
+    normed rows (B_loc, 1, d). The tokens are all-gathered over dp; this
+    rank applies its (e_loc, d / dp, f) weight shards, the d contraction
+    completed by a sum over dp; the capacity is the decode's generous
+    min(t, max(16, int(t * top_k / E * max(cf, 2)) + 8)); the (t, d / dp)
+    partial outputs are summed over 'model' and return to the batch layout
+    by one all-to-all over dp. No weight moves. The shared experts are the
+    caller's (`moe_forward`)."""
+    m = cfg.moe
+    b, s, d = h.shape
+    dp, tp = rt.dp_axes, (rt.tp_axis,)
+    n_dp = rt.dp_size
+    if d % n_dp:
+        raise ValueError(f"d_model {d} does not divide over {n_dp} dp ranks")
+    x = comm.gather_grad(comm.copy_to(h, rt, tp), rt, dp, 0)
+    t = x.shape[0]
+    xt = x.reshape(t, d)
+    e_loc = _e_loc(cfg, rt)
+    lo = rt.tp_rank * e_loc
+    router = comm.copy_to(full(params["router"]), rt, tp)
+    gate = _route(router, xt, cfg)[:, lo:lo + e_loc]
+    cap = min(t, max(16, int(t * m.top_k / m.num_experts * max(m.capacity_factor, 2.0)) + 8))
+    top_gate, top_idx = _select(gate, cap)
+    dps = dp if len(dp) > 1 else dp[0]
+    w = {k: _expert_block(params[k], rt, P(rt.tp_axis, dps, None))
+         for k in ("w_in", "w_gate") if k in params}
+    w["w_out"] = _expert_block(params["w_out"], rt, P(rt.tp_axis, None, dps))
+    d_loc = d // n_dp
+    xe = xt[top_idx.reshape(-1)].reshape(e_loc, cap, d)
+    xe_loc = xe[:, :, rt.dp_rank * d_loc:(rt.dp_rank + 1) * d_loc]
+    ye = _experts(w, cfg, xe_loc, pre_sum=lambda y: comm.sum_grad(y, rt, dp))
+    out = comm.reduce_from(_combine(ye, top_gate, top_idx, t), rt, tp)   # (t, d_loc)
+    # (t, d_loc) -> (t_loc, d): one all-to-all, blocks indexed by d slice
+    ex = comm.all_to_all(out.reshape(n_dp, t // n_dp, d_loc), rt, dp)
+    return ex.movedim(0, 1).reshape(t // n_dp, 1, d)
+
+
+def moe_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, rt=None) -> torch.Tensor:
+    """Capacity MoE (+ the shared experts), pre-norm. x: (B, S, d), this
+    rank's batch rows on a mesh.
+
+    Off a mesh: route every token (`_route`), keep each expert's top
+    `_capacity(B * S)` routes (`_select`), run the experts as batched
+    products over (E, cap) gathered tokens, weight each output by its gate
+    and scatter-add into the tokens' rows. On a mesh, `_moe_mesh`; with
+    rt.moe_decode_gather, a decode step (S == 1) and dp_size > 1,
+    `_moe_decode_gather` (reference :169)."""
+    m = cfg.moe
+    h = rmsnorm(x, full(params["ln"]), cfg.norm_eps)
+    if rt is None or not rt.distributed:
+        out = _moe_local(params, h, cfg)
+    elif rt.moe_decode_gather and h.shape[1] == 1 and rt.dp_size > 1:
+        out = _moe_decode_gather(params, h, cfg, rt)
     else:
-        act = _act(cfg, pre)
-    ye = torch.einsum("ecf,efd->ecd", act, params["w_out"])
-    w_comb = torch.where(top_gate > 0, top_gate, 0.0).to(ye.dtype)
-    ye = ye * w_comb[:, :, None]
-    out = torch.zeros((t, d), dtype=ye.dtype, device=ye.device).index_add_(
-        0, top_idx.reshape(-1), ye.reshape(-1, d)).reshape(b, s, d)
+        out = _moe_mesh(params, h, cfg, rt)
     if m.n_shared:
         out = out + _shared_expert(params, h, cfg)
     return out

@@ -16,6 +16,27 @@ mixer), and the channel mixers ffn and moe.
 Cross-entropy is computed in sequence chunks of LOSS_CHUNK positions against
 the head, so no more than one chunk's (B, C, V) logits exist at a time in
 the forward.
+
+On a mesh (`Runtime` with a DeviceMesh), every rank is given the global
+batch and keeps its dp rows (`_rows`: split over the dp axes when the batch
+divides, replicated otherwise, the reference's fallback); the outputs that
+leave the model (prefill's last hidden states, decode's logits) are
+all-gathered back over dp, and the loss is the global batch's: each rank's
+token-loss sum over the global token count, summed over dp
+(`comm.reduce_from`, so each rank's backward gives its own rows' share,
+which the train step sums). Parameters may be DTensors: each block's
+weights are gathered at use over every axis they are sharded on (ZeRO-3,
+`dist.sharding.full`). Only the reference's explicit paths compute on local
+shards: `dist.tp` under explicit_tp, and the MoE bodies
+(`ffn._moe_mesh`, `ffn._moe_decode_gather`). GQA, local attention, MLA,
+RG-LRU and SSD run replicated over 'model' in this slice (the reference
+leaves their partition to GSPMD); head-parallel attention and a
+vocab-parallel loss are ROADMAP work for a multi-card cell. Under
+seq_shard, each block boundary keeps this 'model' rank's slice of the
+sequence and the next block all-gathers it (`constrain`). Decode caches
+are DTensors placed with batch over dp, and cache_seq and inner kept
+replicated (`_place_cache`): the attention and recurrent mixers that read
+them run replicated over 'model'.
 """
 
 from __future__ import annotations
@@ -24,7 +45,16 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import Runtime, constrain
+from repro_torch.dist import comm
+from repro_torch.dist.sharding import (
+    Runtime,
+    constrain,
+    full,
+    is_dtensor,
+    local,
+    logical_to_spec,
+    placements,
+)
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import recurrent as rec
@@ -36,10 +66,44 @@ SEQ_KEYS = ("k", "v", "ckv", "krope")   # cache entries with a sequence axis
 
 
 def _layer(tree, r: int):
-    """Layer r's slice of a tree of stacked (R, ...) leaves (views)."""
+    """Layer r's slice of a tree of stacked (R, ...) leaves (views; a
+    DTensor's as a DTensor over its local layer, no collective)."""
     if isinstance(tree, dict):
         return {k: _layer(v, r) for k, v in tree.items()}
+    if is_dtensor(tree):
+        from torch.distributed.tensor import DTensor, Shard
+
+        pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p for p in tree.placements)
+        return DTensor.from_local(tree.to_local()[r], tree.device_mesh, pl, run_check=False,
+                                  shape=tree.shape[1:], stride=tree.stride()[1:])
     return tree[r]
+
+
+def _full_tree(tree):
+    """A block's leaves gathered whole (the mixers run replicated)."""
+    if isinstance(tree, dict):
+        return {k: _full_tree(v) for k, v in tree.items()}
+    return full(tree)
+
+
+def _rows(rt: Runtime, b: int) -> slice | None:
+    """This rank's dp rows of a global batch of b, or None (off a mesh, or
+    a batch the dp ranks do not divide: replicated)."""
+    if not rt.distributed or b % rt.dp_size:
+        return None
+    n = b // rt.dp_size
+    return slice(rt.dp_rank * n, (rt.dp_rank + 1) * n)
+
+
+def _local_batch(batch: dict, rt: Runtime) -> dict:
+    b = next(iter(batch.values())).shape[0]
+    rows = _rows(rt, b)
+    return batch if rows is None else {k: v[rows] for k, v in batch.items()}
+
+
+def _gather_rows(x: torch.Tensor, rt: Runtime, b: int) -> torch.Tensor:
+    """This rank's rows of an output back to the global batch of b."""
+    return x if _rows(rt, b) is None else comm.all_gather(x, rt, rt.dp_axes, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -51,10 +115,10 @@ def embed_input(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """tokens (B,S) int -> embeddings; or stub-frontend frames (B,S,fd),
     projected in the wider of the frames' and the projection's dtypes."""
     if "frames" in batch:
-        frames, proj = batch["frames"], params["frontend_proj"]
+        frames, proj = batch["frames"], full(params["frontend_proj"])
         dt = torch.promote_types(frames.dtype, proj.dtype)
         return torch.einsum("bsf,fd->bsd", frames.to(dt), proj.to(dt))
-    return params["embed"][batch["tokens"].long()]
+    return full(params["embed"])[batch["tokens"].long()]
 
 
 # ---------------------------------------------------------------------------
@@ -81,16 +145,16 @@ def _apply_block(kind: str, bp: dict, x, positions, cfg: ArchConfig, rt: Runtime
     Returns (x, cache_entry) — the entry feeds the decode path when this
     runs as prefill (`_cache_entry` lays it out)."""
     mixer = kind.partition("+")[0]
+    mp = _full_tree(bp["mixer"])
     if mixer in ("gqa", "local_attn"):
-        y, (k, v) = attn.gqa_forward(bp["mixer"], x, positions, cfg,
-                                     window=_window(mixer, cfg))
+        y, (k, v) = attn.gqa_forward(mp, x, positions, cfg, window=_window(mixer, cfg))
         cache = {"k": k, "v": v}
     elif mixer == "mla":
-        y, (ckv, krope) = attn.mla_forward(bp["mixer"], x, positions, cfg)
+        y, (ckv, krope) = attn.mla_forward(mp, x, positions, cfg)
         cache = {"ckv": ckv, "krope": krope}
     elif mixer in ("rglru", "ssd"):
         fwd = rec.rglru_forward if mixer == "rglru" else rec.ssd_forward
-        y, (state, tail) = fwd(bp["mixer"], x, cfg)
+        y, (state, tail) = fwd(mp, x, cfg)
         cache = {"state": state, "tail": tail}
     else:
         raise ValueError(mixer)
@@ -103,14 +167,15 @@ def _apply_block_decode(kind: str, bp: dict, x, cache: dict, pos: int, cfg: Arch
     (the attention caches at this token's slot, the recurrent states and
     conv tails whole). Returns (x, cache)."""
     mixer = kind.partition("+")[0]
+    mp = _full_tree(bp["mixer"])
     if mixer in ("gqa", "local_attn"):
-        y, _ = attn.gqa_decode(bp["mixer"], x, cache["k"], cache["v"], pos, cfg,
+        y, _ = attn.gqa_decode(mp, x, cache["k"], cache["v"], pos, cfg,
                                window=_window(mixer, cfg))
     elif mixer == "mla":
-        y, _ = attn.mla_decode(bp["mixer"], x, cache["ckv"], cache["krope"], pos, cfg)
+        y, _ = attn.mla_decode(mp, x, cache["ckv"], cache["krope"], pos, cfg)
     elif mixer in ("rglru", "ssd"):
         dec = rec.rglru_decode if mixer == "rglru" else rec.ssd_decode
-        y, (state, tail) = dec(bp["mixer"], x, cache["state"], cache["tail"], cfg)
+        y, (state, tail) = dec(mp, x, cache["state"], cache["tail"], cfg)
         cache["state"].copy_(state)
         cache["tail"].copy_(tail)
     else:
@@ -193,16 +258,22 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 
 def forward_train(params: dict, batch: dict, cfg: ArchConfig, rt: Runtime) -> torch.Tensor:
-    """Full-sequence forward -> final hidden states (B, S, d)."""
+    """Full-sequence forward -> final hidden states (B, S, d) (on a mesh
+    computed on each rank's dp rows and gathered back)."""
+    b = next(iter(batch.values())).shape[0]
+    return _gather_rows(_forward_local(params, _local_batch(batch, rt), cfg, rt), rt, b)
+
+
+def _forward_local(params: dict, batch: dict, cfg: ArchConfig, rt: Runtime) -> torch.Tensor:
     x = embed_input(params, batch, cfg)
     x, _ = _backbone(params, x, _positions(x), cfg, rt)
-    return attn.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return attn.rmsnorm(x, full(params["final_norm"]), cfg.norm_eps)
 
 
 def _head_matrix(params: dict, cfg: ArchConfig) -> torch.Tensor:
     if cfg.tie_embeddings or "lm_head" not in params:
-        return params["embed"].T
-    return params["lm_head"]
+        return full(params["embed"]).T
+    return full(params["lm_head"])
 
 
 # ---------------------------------------------------------------------------
@@ -211,12 +282,25 @@ def _head_matrix(params: dict, cfg: ArchConfig) -> torch.Tensor:
 
 
 def _chunked_xent(hidden: torch.Tensor, labels: torch.Tensor, head: torch.Tensor,
-                  cfg: ArchConfig) -> torch.Tensor:
+                  cfg: ArchConfig, rt: Runtime | None = None) -> torch.Tensor:
     """Mean next-token cross-entropy in f32, LOSS_CHUNK positions at a time.
 
     Logits of padded vocabulary entries (head columns past cfg.vocab_size)
     are -1e30, out of the partition function; labels < 0 are padding and
-    count neither in the sum nor in the mean's count."""
+    count neither in the sum nor in the mean's count. On a mesh, hidden
+    and labels are this rank's rows: the mean is over the global batch's
+    tokens (the count summed over dp), and this rank's share is summed
+    over dp (`comm.reduce_from`: the backward keeps this rank's share)."""
+    tot, cnt = _xent_sums(hidden, labels, head, cfg)
+    if rt is None or not rt.distributed:
+        return tot / torch.clamp_min(cnt, 1.0)
+    cnt = comm.all_reduce(cnt, rt, rt.dp_axes)
+    return comm.reduce_from(tot / torch.clamp_min(cnt, 1.0), rt, rt.dp_axes)
+
+
+def _xent_sums(hidden: torch.Tensor, labels: torch.Tensor, head: torch.Tensor,
+               cfg: ArchConfig):
+    """(token-loss sum, token count) of `_chunked_xent`, in f32."""
     b, s, d = hidden.shape
     v_real = cfg.vocab_size
     chunk = min(LOSS_CHUNK, s)
@@ -236,23 +320,26 @@ def _chunked_xent(hidden: torch.Tensor, labels: torch.Tensor, head: torch.Tensor
         valid = (y >= 0).float()
         tot = tot + ((lse - gold) * valid).sum()
         cnt = cnt + valid.sum()
-    return tot / torch.clamp_min(cnt, 1.0)
+    return tot, cnt
 
 
 def loss_fn(params: dict, batch: dict, cfg: ArchConfig, rt: Runtime):
     """Next-token LM loss (+ the multi-token-prediction auxiliary when
     cfg.mtp_heads is set). Returns (loss, metrics) as 0-d f32 tensors.
 
-    batch: {"tokens" | "frames", "labels" (B, S) with -1 padding}; the
-    labels come shifted by the pipeline (labels[t] = tokens[t + 1])."""
-    hidden = forward_train(params, batch, cfg, rt)
+    batch: {"tokens" | "frames", "labels" (B, S) with -1 padding}, the
+    global batch; the labels come shifted by the pipeline (labels[t] =
+    tokens[t + 1]). On a mesh the loss is the global batch's on every rank
+    (`_chunked_xent`)."""
+    batch = _local_batch(batch, rt)
+    hidden = _forward_local(params, batch, cfg, rt)
     labels = batch["labels"]
-    loss = _chunked_xent(hidden, labels, _head_matrix(params, cfg), cfg)
+    loss = _chunked_xent(hidden, labels, _head_matrix(params, cfg), cfg, rt)
     metrics = {"lm_loss": loss}
     if cfg.mtp_heads:
         # multi-token prediction: the labels shifted one step further
         mtp_labels = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)], dim=1)
-        mtp_loss = _chunked_xent(hidden, mtp_labels, params["mtp_head"], cfg)
+        mtp_loss = _chunked_xent(hidden, mtp_labels, full(params["mtp_head"]), cfg, rt)
         metrics["mtp_loss"] = mtp_loss
         loss = loss + MTP_WEIGHT * mtp_loss
     metrics["loss"] = loss
@@ -313,11 +400,35 @@ def cache_specs(cfg: ArchConfig, batch: int, s_max: int) -> list:
     return segs
 
 
+def _place_cache(t: torch.Tensor, rt: Runtime, b: int):
+    """A cache leaf (R, B_loc, ...) of this rank's rows as a DTensor of the
+    global batch b. Under the cache specs only 'batch' is placed (over dp,
+    when the rows were split): cache_seq and inner stay replicated, since
+    the attention and recurrent mixers that read them run replicated over
+    'model'."""
+    from torch.distributed.tensor import DTensor
+
+    shape = (t.shape[0], b, *t.shape[2:])
+    logical = ("layers", "batch") + (None,) * (t.dim() - 2)
+    pl = placements(logical_to_spec(logical, shape, rt), rt.mesh)
+    return DTensor.from_local(t, rt.mesh, pl, run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, rt: Runtime, device="cuda") -> list:
-    """Zeroed decode caches of `cache_specs`' shapes and dtypes."""
-    del rt
-    return _map_specs(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
-                      cache_specs(cfg, batch, s_max))
+    """Zeroed decode caches of `cache_specs`' shapes and dtypes; on a mesh
+    DTensors of this rank's rows (`_place_cache`)."""
+    rows = _rows(rt, batch)
+
+    def mk(s: ParamSpec):
+        if not rt.distributed:
+            return torch.zeros(s.shape, dtype=s.dtype, device=device)
+        shape = list(s.shape)
+        if rows is not None:
+            shape[1] = rows.stop - rows.start
+        return _place_cache(torch.zeros(shape, dtype=s.dtype, device=device), rt, batch)
+
+    return _map_specs(mk, cache_specs(cfg, batch, s_max))
 
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig, rt: Runtime, s_max: int | None = None):
@@ -326,10 +437,14 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, rt: Runtime, s_max: int 
     Returns (last_hidden (B, 1, d), cache). Attention caches come out
     (R, B, S, ...), right-padded with zeros to s_max when s_max > S; a
     local-attention layer's as its ring (`_cache_entry`)."""
-    x = embed_input(params, batch, cfg)
+    b = next(iter(batch.values())).shape[0]
+    x = embed_input(params, _local_batch(batch, rt), cfg)
     x, caches = _backbone(params, x, _positions(x), cfg, rt, collect_cache=True, s_max=s_max)
-    hidden = attn.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return hidden[:, -1:, :], caches
+    hidden = attn.rmsnorm(x, full(params["final_norm"]), cfg.norm_eps)
+    if rt.distributed:
+        caches = [[{k: _place_cache(t, rt, b) for k, t in entry.items()} for entry in seg]
+                  for seg in caches]
+    return _gather_rows(hidden[:, -1:, :], rt, b), caches
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cache: list, pos, cfg: ArchConfig,
@@ -339,15 +454,17 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: list, pos, cfg: ArchC
     reference donates it). Returns (logits (B, 1, V) in the params'
     dtype, cache)."""
     pos = int(pos)
-    x = embed_input(params, {"tokens": tokens}, cfg)
+    b = tokens.shape[0]
+    x = embed_input(params, _local_batch({"tokens": tokens}, rt), cfg)
     for (unit, repeats), seg, seg_cache in zip(layer_plan(cfg), params["segments"], cache):
+        seg_cache = [{k: local(t) for k, t in entry.items()} for entry in seg_cache]
         for r in range(repeats):
             for kind, bp, entry in zip(unit, seg["blocks"], seg_cache):
                 x, _ = _apply_block_decode(kind, _layer(bp, r), x, _layer(entry, r), pos, cfg,
                                            rt)
-    hidden = attn.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    hidden = attn.rmsnorm(x, full(params["final_norm"]), cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", hidden, _head_matrix(params, cfg))
-    return logits, cache
+    return _gather_rows(logits, rt, b), cache
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, dtype=torch.bfloat16,

@@ -85,6 +85,10 @@ class InsertRequest:
 _empty_stats = default_stats
 
 
+ENGINE_MESH_ITEM = ("ROADMAP queue 1 item 11(e) (the engine over more than one rank: rank 0 "
+                    "schedules and broadcasts each wave)")
+
+
 @dataclass
 class UniversalVectorService:
     """Mixed-p batched serving engine over a U-HNSW index.
@@ -173,9 +177,8 @@ class UniversalVectorService:
         `device` (None: the tensor's own device, or "cuda" for a numpy
         array).
 
-        rt (a mesh Runtime in the reference, which places the segment axis
-        over the mesh's data axes) must be None: `shard_over` waits for
-        the mesh's port (ROADMAP item 11). expand_width (if given) overrides the params'
+        rt: a mesh Runtime, over whose data axes `ShardedUHNSW.shard_over`
+        places the segment axis (None: unplaced). expand_width (if given) overrides the params'
         W-way multi-expansion factor for the level-0 beam. `method` picks
         the per-segment graph builder ("incremental" / "bulk" /
         "bulk_host", DESIGN.md §7; None = auto by segment size — the
@@ -187,15 +190,14 @@ class UniversalVectorService:
         kwargs configure the service (max_batch, min_bucket,
         queue_capacity).
         """
-        if rt is not None:
-            raise NotImplementedError("placing the segments over a mesh (shard_over) is not "
-                                      "ported yet")
         index = ShardedUHNSW.build(
             data, num_segments=num_segments, m=m,
             params=_with_expand_width(params, expand_width), seed=seed,
             delta_capacity=delta_capacity, method=method,
             sharded_params=sharded_params, device=device,
         )
+        if rt is not None:
+            index.shard_over(rt)
         return cls(index=index, **kw)
 
     @classmethod
@@ -437,7 +439,17 @@ class UniversalVectorService:
         the engine retries/bisects them and the retried results are
         bitwise-identical. If the recovery machinery itself fails, the
         engine enters its terminal failed state and the error propagates
-        with responses already computed as `partial_results`."""
+        with responses already computed as `partial_results`.
+
+        The engine forms its waves by the clock, so ranks of a mesh would
+        form different waves and enter different collectives: over more
+        than one rank it raises (ROADMAP item 11(e): rank 0 schedules and
+        broadcasts each wave)."""
+        rt = getattr(self.index, "_rt", None)
+        if rt is not None and rt.distributed and rt.mesh.size() > 1:
+            raise NotImplementedError(
+                f"serve() over {rt.mesh.size()} ranks: the engine's clock-formed waves would "
+                f"differ per rank; {ENGINE_MESH_ITEM}. Use serve_grouped or serve_v1")
         eng = self.engine
         out: dict[int, tuple] = {}
         i = 0

@@ -1,9 +1,21 @@
 """Train step factory: loss -> grads -> (compress) -> AdamW, with optional
 microbatch gradient accumulation and activation remat (`Runtime.remat`).
 
-Counterpart of `repro.train.step`, on one card. The reference jits the
-step and donates the state; here the step runs eagerly and AdamW updates
-the parameters and moments in place, so the state is held once.
+Counterpart of `repro.train.step`. The reference jits the step and donates
+the state; here the step runs eagerly and AdamW updates the parameters and
+moments in place, so the state is held once.
+
+On a mesh the state's leaves are DTensors placed by `logical_to_spec`
+(`init_train_state`, `dist.sharding.distribute_params`), and every rank
+is given the same global batch. A (micro)batch's gradient is taken on the
+full weights, gathered at use (ZeRO-3: each microbatch gathers them again,
+or once a step under weights_once, the reference's `_pregather`), on this
+rank's dp rows of the microbatch (`models.model._rows`: the reference's
+`_constrain_mb`, dp on the rows of each (microbatches, gb / mb) slice).
+The accumulated full gradients are then summed over dp
+(`_reduce_grads`): a reduce-scatter back to the shards of the leaves
+sharded over dp, an all-reduce for the rest; each rank keeps its window
+of the dims sharded over 'model', whose ranks computed alike.
 """
 
 from __future__ import annotations
@@ -13,7 +25,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import Runtime
+from repro_torch.dist import comm
+from repro_torch.dist.sharding import Runtime, full, is_dtensor
 from repro_torch.models.model import loss_fn
 from repro_torch.optim.adamw import adamw_update, cosine_schedule
 from repro_torch.train.compression import compress_decompress_grads
@@ -29,11 +42,44 @@ class TrainConfig:
     grad_clip: float = 1.0
     microbatches: int = 1          # gradient accumulation factor
     grad_compression: bool = False  # int8 + error feedback
-    weights_once: bool = False     # the reference pre-gathers the FSDP-sharded
-    #                                weights once a step; on one card the
-    #                                weights are whole, so it does nothing
+    weights_once: bool = False     # gather the sharded weights once a step,
+    #                                outside the microbatch loop (a full copy
+    #                                resident across it); off a mesh the
+    #                                weights are whole and it does nothing
     b1: float = 0.9
     b2: float = 0.95
+
+
+def _reduce_grads(grads: list, params: list, rt: Runtime) -> list:
+    """Full per-rank gradients -> each parameter's shard of their sum over
+    dp, as DTensors placed like the parameters."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.dist.sharding import mesh_names, window
+
+    names = mesh_names(rt.mesh)
+    dp = set(rt.dp_axes)
+    out = []
+    for g, p in zip(grads, params):
+        pl = p.placements
+        rep = tuple(a for a, q in zip(names, pl) if a in dp and not isinstance(q, Shard))
+        if rep:
+            g = comm.all_reduce(g, rt, rep)
+        by_dim: dict[int, list[str]] = {}
+        for a, q in zip(names, pl):
+            if isinstance(q, Shard) and a in dp:
+                by_dim.setdefault(q.dim, []).append(a)
+        for dim, axes in by_dim.items():
+            g = comm.reduce_scatter(g, rt, tuple(axes), dim)
+        # the 'model' shards (outside dp) are this rank's window, no sum
+        spec = [None] * g.dim()
+        for a, q in zip(names, pl):
+            if isinstance(q, Shard) and a not in dp:
+                spec[q.dim] = a
+        g = g[window(tuple(g.shape), tuple(spec), rt)]
+        out.append(DTensor.from_local(g.contiguous(), p.device_mesh, pl, run_check=False,
+                                      shape=p.shape, stride=p.stride()))
+    return out
 
 
 def make_train_step(cfg: ArchConfig, rt: Runtime, tc: TrainConfig):
@@ -47,35 +93,46 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, tc: TrainConfig):
 
     `train_step.compute_grads(params, batch)` -> (grads, metrics) is the
     step's gradient of one (micro)batch: a tree of params' structure at the
-    parameters' dtypes."""
+    parameters' dtypes (on a mesh, this rank's full gradient before the sum
+    over dp)."""
     schedule = cosine_schedule(tc.lr, tc.warmup_steps, tc.total_steps)
 
     def compute_grads(params, batch):
         p_l = leaves(params)
-        live = [p.detach().requires_grad_() for p in p_l]
+        live = [full(p).detach().requires_grad_() for p in p_l]
         with torch.enable_grad():
             loss, metrics = loss_fn(unflatten(params, live), batch, cfg, rt)
             grads = torch.autograd.grad(loss, live, allow_unused=True)
         # a leaf the loss does not reach (a frontend arch's embedding) gets
         # zeros, as jax.grad gives it
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(p_l, grads)]
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
         return unflatten(params, grads), {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state, batch):
         params = state["params"]
-        # tc.weights_once: the pre-gather is the identity on one card
+        sharded = any(is_dtensor(p) for p in leaves(params))
+        fwd = params
+        if sharded and tc.weights_once:
+            fwd = unflatten(params, [full(p) for p in leaves(params)])
         if tc.microbatches > 1:
-            g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for p in leaves(params)]
+            g_acc = None
             for i in range(tc.microbatches):
-                g, metrics = compute_grads(params, {k: v[i] for k, v in batch.items()})
+                g, metrics = compute_grads(fwd, {k: v[i] for k, v in batch.items()})
+                if g_acc is None:
+                    g_acc = [torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+                             for b in leaves(g)]
                 for a, b in zip(g_acc, leaves(g)):
                     a.add_(b.float())
                 del g
-            grads = unflatten(params, [a / tc.microbatches for a in g_acc])
+            grads = [a / tc.microbatches for a in g_acc]
             del g_acc
         else:
-            grads, metrics = compute_grads(params, batch)
+            grads, metrics = compute_grads(fwd, batch)
+            grads = leaves(grads)
+        del fwd
+        if sharded:
+            grads = _reduce_grads(grads, leaves(params), rt)
+        grads = unflatten(params, grads)
 
         if tc.grad_compression:
             grads, new_err = compress_decompress_grads(grads, state["err"])
@@ -94,14 +151,37 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, tc: TrainConfig):
 def init_train_state(cfg: ArchConfig, rt: Runtime, tc: TrainConfig,
                      generator: torch.Generator, device="cuda") -> dict:
     """{"params": bf16 init_params from generator, "opt": adamw_init, and
-    "err" (f32 zeros) under grad_compression}, on device."""
+    "err" (f32 zeros) under grad_compression}, on device; on a mesh every
+    leaf placed by its spec (the moments and error buffers like their
+    parameters)."""
+    from repro_torch.dist.sharding import distribute_params
     from repro_torch.models.model import init_params
+    from repro_torch.models.params import param_specs
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.train.compression import compression_init
 
-    del rt
     params = init_params(cfg, generator, device=device)
+    if rt.distributed:
+        params = distribute_params(params, param_specs(cfg), rt)
     state = {"params": params, "opt": adamw_init(params)}
     if tc.grad_compression:
         state["err"] = compression_init(params)
+    return state
+
+
+def train_state_specs(cfg: ArchConfig, tc: TrainConfig):
+    """The training state's ParamSpec tree (moments and error buffers f32
+    under their parameters' logical axes, the step a 0-d int32):
+    `checkpoint.store.restore_checkpoint`'s skeleton for placing a state
+    on a mesh."""
+    from dataclasses import replace
+
+    from repro_torch.models.params import ParamSpec, _map_specs, param_specs
+
+    p = _map_specs(lambda s: s, param_specs(cfg))
+    f32 = _map_specs(lambda s: replace(s, dtype=torch.float32), p)
+    state = {"params": p, "opt": {"m": f32, "v": f32,
+                                  "step": ParamSpec((), (), torch.int32)}}
+    if tc.grad_compression:
+        state["err"] = f32
     return state

@@ -416,7 +416,8 @@ def test_serve_cli_creates_then_recovers(tmp_path, capsys):
     segments, so the shared-pass builder runs): the first run snapshots a
     fresh build, the second recovers it; both serve and report the same n.
     Without --retrieval the command line serves the LM, and refuses a mesh
-    (ROADMAP item 11(c))."""
+    of more ranks than it was started with (ROADMAP item 11(c), the mesh:
+    torch.distributed.run starts them)."""
     args = ["--retrieval", "--n", "2000", "--segments", "2", "--requests", "48",
             "--state-dir", str(tmp_path / "state"), "--device", "cpu"]
     assert serve_main(args) == 0
@@ -432,4 +433,4 @@ def test_serve_cli_creates_then_recovers(tmp_path, capsys):
     assert capsys.readouterr().out.startswith("generated (4, 4) tokens")
     with pytest.raises(SystemExit):
         serve_main(["--n", "2000", "--model", "2"])
-    assert "11(c)" in capsys.readouterr().err
+    assert "start them with python -m torch.distributed.run" in capsys.readouterr().err

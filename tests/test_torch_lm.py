@@ -49,7 +49,7 @@ from repro.models import params as r_params
 from repro.serve.engine import ServeEngine as RServeEngine
 from repro_torch.configs.base import get_arch
 from repro_torch.convert import lm_params_from_reference
-from repro_torch.dist.sharding import Runtime
+from repro_torch.dist.sharding import Runtime, abstract_mesh
 from repro_torch.models import model
 from repro_torch.models import params as p_params
 from repro_torch.serve.engine import ServeEngine
@@ -407,10 +407,13 @@ def test_serve_engine_greedy_matches_reference_every_kind(arch):
 
 
 def test_runtime_refuses_a_mesh_and_its_modes():
-    for kw in ({"mesh": object()}, {"explicit_tp": True}, {"seq_shard": True},
-               {"full_dp": True}):
-        with pytest.raises(NotImplementedError, match=r"11\(c\)"):
-            Runtime(**kw)
+    """Since the mesh's port no mode is refused: a Runtime takes any mesh
+    and mode, and mesh=None stays one card (tests/test_torch_dist.py holds
+    the rules on meshes, tests/test_torch_mesh.py the paths on ranks)."""
+    for kw in ({"mesh": abstract_mesh((2, 2), ("data", "model"))}, {"explicit_tp": True},
+               {"seq_shard": True}, {"full_dp": True}):
+        rt = Runtime(**kw)
+        assert not rt.distributed
     rt = Runtime(remat=True, moe_decode_gather=True)
     assert (rt.dp_size, rt.tp_size, rt.dp_axes) == (1, 1, ())
 
@@ -426,8 +429,10 @@ def test_cli_serves_the_lm_and_refuses_what_is_not_ported():
         out = run_cli("--arch", arch, "--smoke", "--device", "cpu")
         assert out.returncode == 0, out.stderr
         assert out.stdout.splitlines()[0].startswith("generated (4, 32) tokens")
+    # a mesh of 2 ranks needs torch.distributed.run to start them
+    # (tests/test_torch_mesh.py serves through it)
     mesh = run_cli("--smoke", "--device", "cpu", "--model", "2")
-    assert mesh.returncode == 2 and "11(c)" in mesh.stderr
+    assert mesh.returncode == 2 and "torch.distributed.run" in mesh.stderr
 
 
 @pytest.mark.parametrize("arch", ["deepseek_v3_671b", "llama4_scout_17b_a16e"])

@@ -528,11 +528,14 @@ def test_crash_resume_trajectory(tmp_path):
     (["--model", "4"], "11(c)"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item):
+    """A mesh (item 11(c), ported) of more than one rank is refused unless
+    torch.distributed.run started the ranks (tests/test_torch_mesh.py
+    trains through it)."""
     err = io.StringIO()
     with redirect_stderr(err), pytest.raises(SystemExit) as exc:
         train_cli.main(["--smoke", "--device", "cpu", *argv])
     assert exc.value.code == 2
-    assert f"ROADMAP queue 1 item {item}" in err.getvalue()
+    assert item == "11(c)" and "start them with python -m torch.distributed.run" in err.getvalue()
 
 
 def test_cli_trains_the_recurrent_archs(tmp_path):
