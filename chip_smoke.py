@@ -42,9 +42,9 @@ read just after:
   7. durability (phase `durable`): the sharded index wrapped in a
      DurableIndex, 1,536 fresh rows through add() (one compaction and
      snapshot rotation: pairwise_lp, gather_lp), searches, recover() into a
-     fresh index that must be bitwise equal, a recovery from a log whose
-     newest record was cut short, and a poisoned segment restored from the
-     snapshot;
+     fresh index that must be bitwise equal (searches at p = 1.25 and the
+     mixed batch), a recovery from a log whose newest record was cut
+     short, and a poisoned segment restored from the snapshot;
   8. serving (phase `serve`): 1,024 mixed-p requests through
      UniversalVectorService.serve (the engine) over the recovered index
      (gather_lp, gather_lp_abandon, and pairwise_lp on the delta scan),
@@ -111,11 +111,21 @@ read just after:
      engine's and a checkpoint round trip mesh -> no mesh -> mesh; in the
      `--sharded-paths` process, the 4-segment index placed by `shard_over`
      and searched at p = 0.5 and the mixed batch (gather_lp,
-     gather_lp_abandon), equal to the unplaced search.
+     gather_lp_abandon), equal to the unplaced search, then served through
+     the engine (`UniversalVectorService.serve`: rank 0's orders over the
+     group) with 128 mixed-p requests, equal to `serve_grouped`;
+ 17. the dry-run (phase `dryrun`, in the `--lm-paths` process): the train
+     phase's step traced with `launch.dryrun.trace` (meta tensors, no
+     mesh), its predicted peak held to one real step's on the card within
+     10%, its flops and roofline terms printed beside the step's time;
+     and `python -m repro_torch.launch.dryrun` on tinyllama_1_1b x
+     train_4k (--optimized) and qwen2_5_32b x decode_32k over a fake
+     256-rank group, started with the process and read at its end, each
+     status ok.
 
 Paths 5–8 run in a second process, `chip_smoke.py --sharded-paths`, on
 the same corpus, queries and truth made again, and paths 9, 10, 11, 13
-and 14 (with the kNN-LM's datastore, phase `knn_store`) in a third,
+and 14 (with the kNN-LM's datastore, phase `knn_store`) and 17 in a third,
 `chip_smoke.py --lm-paths`; both start once the kernels are built and
 timed (after `kernels_rest`), beside paths 1–4 and 12, and are read at
 the end: their seconds and rates share the card and the host with the
@@ -1634,13 +1644,18 @@ def phase_sharded(X, Q, truth):
 
 
 MESH_INDEX_P = (0.5, "mixed")
+MESH_SERVE_REQUESTS = 128  # mixed-p requests through the engine on the placed index
 
 
 def phase_mesh_index(idx, Q) -> None:
     """The sharded index placed over a one-rank NCCL group's (1, 1) mesh
     (`shard_over`: the segment axis over 'data', which 1 divides), searched
     at MESH_INDEX_P under the policy it has, counted: ids, dists and every
-    counter equal to the unplaced search's. Then unplaced again and the
+    counter equal to the unplaced search's. Then the engine's `serve` on
+    the placed index, through the path that sends rank 0's orders over the
+    group (`retrieval.engine.orders`: to no other rank here), with
+    MESH_SERVE_REQUESTS mixed-p requests: ids and dists equal to
+    `serve_grouped`'s on the same placed index. Then unplaced again and the
     group closed, so the later phases run as before."""
     import torch.distributed as dist
 
@@ -1659,6 +1674,7 @@ def phase_mesh_index(idx, Q) -> None:
         placed = idx._place is not None
         got, launched = counted(lambda: {p: _search(idx, Q, mixed_p(Q.shape[0]) if p == "mixed"
                                                     else p) for p in MESH_INDEX_P})
+        serve = mesh_serve(idx, Q)
     finally:
         idx.shard_over(None)
         dist.destroy_process_group()
@@ -1673,10 +1689,50 @@ def phase_mesh_index(idx, Q) -> None:
            "queries": Q.shape[0], "p": [str(p) for p in MESH_INDEX_P], "equal": equal,
            "batch_seconds": {str(p): got[p][3] for p in MESH_INDEX_P},
            "unplaced_batch_seconds": {str(p): want[p][3] for p in MESH_INDEX_P},
-           "group_start_s": group_s, "launches": launched, "seconds": _now() - t0}
+           "group_start_s": group_s, "launches": launched, "serve": serve,
+           "seconds": _now() - t0}
     check(placed and all(equal.values()), f"mesh: shard_over's search differs: {out}")
+    check(serve["equal_to_grouped"], f"mesh: the engine's serve differs: {serve}")
     check_launched(launched, ("gather_lp", "gather_lp_abandon"), "mesh_index")
     emit(out)
+
+
+def mesh_serve(idx, Q) -> dict:
+    """`UniversalVectorService.serve` on the placed index against its
+    `serve_grouped`: MESH_SERVE_REQUESTS requests drawn as `serve_requests`
+    draws them."""
+    import torch.distributed as dist
+
+    from repro_torch.retrieval.engine import orders
+    from repro_torch.retrieval.service import QueryRequest, UniversalVectorService
+
+    Qh = Q.cpu().numpy()
+    rng = np.random.default_rng(2)
+    reqs = [QueryRequest(vector=Qh[int(rng.integers(len(Qh)))], p=float(rng.choice(SERVE_P)),
+                         k=K, request_id=i) for i in range(MESH_SERVE_REQUESTS)]
+    svc = UniversalVectorService(index=idx)
+    sent = []
+    send = orders.send
+
+    def counting(order):
+        sent.append(order[0])
+        send(order)
+
+    orders.send = counting
+    try:
+        t = _now()
+        got, launched = counted(svc.serve, reqs)
+        serve_s = _now() - t
+    finally:
+        orders.send = send
+    want = svc.serve_grouped(reqs)
+    equal = sorted(got) == sorted(want) and all(
+        np.array_equal(got[i][0], want[i][0]) and np.array_equal(got[i][1], want[i][1])
+        for i in want)
+    return {"requests": len(reqs), "served": len(got), "ranks": dist.get_world_size(),
+            "orders": {k: sent.count(k) for k in sorted(set(sent))},
+            "waves": svc.stats["batches"], "equal_to_grouped": bool(equal),
+            "seconds": serve_s, "qps": len(got) / serve_s, "launches": launched}
 
 
 def torch_equal(a, b) -> bool:
@@ -1769,6 +1825,7 @@ def phase_delta(idx):
 
 
 NAN_CASES = ((1.0, 1.25), (1.0, "mixed"), (2.0, "mixed"))
+DURABLE_P = (1.25,)       # SHARDED_P until the engine's serve over a mesh came: cut for time
 DURABLE_ROWS = 1536      # inserts through DurableIndex.add: one compaction at DELTA_CAPACITY
 SERVE_REQUESTS = 1024     # 2,048 until the LM phases came; cut for the smoke's time
 SERVE_P = (0.5, 0.8, 1.0, 1.3, 1.7, 2.0)   # src/repro/launch/serve.py's draw
@@ -1913,7 +1970,7 @@ def phase_durable(idx, Q):
     it: DurableIndex.create in a temporary directory, DURABLE_ROWS fresh
     rows of the generator's mixture through add() (fsync per record; one
     compaction at DELTA_CAPACITY, whose rotation writes a second
-    snapshot), searches at SHARDED_P and the mixed batch, then recover()
+    snapshot), searches at DURABLE_P and the mixed batch, then recover()
     into a fresh index, which must give ids, dists, N_b and N_p bitwise
     equal to the live index's. A copy of the directory with the newest WAL
     record cut short must recover to the adds before it. Then
@@ -1956,7 +2013,7 @@ def phase_durable(idx, Q):
     # the compaction's shared pass: at 1,024 rows it takes the exact seed,
     # so no multi-p gather
     check_launched(add_launches, ("pairwise_lp", "gather_lp"), "durable adds' compaction")
-    live, search_launches = counted(run_searches, idx, Q, SHARDED_P)
+    live, search_launches = counted(run_searches, idx, Q, DURABLE_P)
     dur.close()
     wal_bytes = {p.name: p.stat().st_size for _, p in list_wals(state)}
     # a crash mid-append: the newest record cut 7 bytes short
@@ -1978,7 +2035,7 @@ def phase_durable(idx, Q):
     t2 = _now()
     rec = recover(state, device=idx.X.device)
     recover_s = _now() - t2
-    got, rec_launches = counted(run_searches, rec, Q, SHARDED_P)
+    got, rec_launches = counted(run_searches, rec, Q, DURABLE_P)
     same_results(live, got, "recovered index")
     t3 = _now()
     rdur = DurableIndex.create(rec, state)
@@ -1989,7 +2046,7 @@ def phase_durable(idx, Q):
     check(not bool(torch.isin(ids_p.long(), gids).any()), "a poisoned id was returned")
     check(bool(torch.as_tensor(st_p.poisoned).any()), "the poison guard did not trip")
     check(restore_segment(idx, POISON_SEGMENT, state), "restore_segment found no snapshot")
-    restored = run_searches(idx, Q, SHARDED_P)
+    restored = run_searches(idx, Q, DURABLE_P)
     same_results(live, restored, "restored segment")
     emit({"phase": "durable", "seconds": _now() - t0, "state_dir_snapshot_bytes": snap_bytes,
           "wal_bytes": wal_bytes, "create_save_seconds": create_s,
@@ -2994,6 +3051,107 @@ def phase_train(lm: dict, dev) -> dict:
     return params
 
 
+DRYRUN_CELLS = (("tinyllama_1_1b", "train_4k", ("--optimized",)),
+                ("qwen2_5_32b", "decode_32k", ()))
+DRYRUN_PEAK_RTOL = 0.10   # the dry-run's peak against the card's, of the card's
+DRYRUN_TIMEOUT = 600
+
+
+def start_dryruns() -> dict:
+    """`python -m repro_torch.launch.dryrun` on each of DRYRUN_CELLS (the
+    production 16 x 16 mesh over a fake group, on the host), started
+    beside the LM paths; `finish_dryruns` reads them."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    out = Path(tempfile.mkdtemp(prefix="smoke_dryrun_"))
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    procs = []
+    for arch, shape, extra in DRYRUN_CELLS:
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             *extra, "--out", str(out)], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    return {"procs": procs, "out": out, "t0": time.perf_counter()}
+
+
+def phase_dryrun(lm: dict, dev) -> dict:
+    """The dry-run of the train phase's own step (LM_ARCH, TRAIN_BATCH x
+    TRAIN_SEQ, its TrainConfig, no mesh) against one real step of a fresh
+    state on the card: the predicted peak (arguments + temp) within
+    DRYRUN_PEAK_RTOL of the step's, which is the card's peak allocation
+    after `reset_peak_memory_stats` less what the process held beside the
+    step's arguments when it started. Prints the predicted flops and
+    roofline terms beside the step's time and its share of the bf16 peak
+    (not gated). Returns the figures for `finish_dryruns`."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.launch import dryrun
+    from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    t0 = _now()
+    cfg, rt = lm["cfg"], Runtime()
+    tc = TrainConfig(lr=3e-4, warmup_steps=max(TRAIN_STEPS // 10, 1), total_steps=TRAIN_STEPS)
+    cost, trace_s = dryrun.trace(cfg, ShapeConfig("smoke_train", TRAIN_SEQ, TRAIN_BATCH,
+                                                  "train"), rt, train_config=tc)
+    pd = cost.report()
+    predicted = pd["argument_bytes"] + pd["temp_bytes"]
+    state = init_train_state(cfg, rt, tc, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    _, batch = next(make_batch_iterator(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                                        start_step=TRAIN_START, device=dev))
+    step = make_train_step(cfg, rt, tc)
+    _sync()
+    args = sum(t.numel() * t.element_size() for t in leaves((state, batch)))
+    beside = torch.cuda.memory_allocated() - args
+    torch.cuda.reset_peak_memory_stats()
+    t = _now()
+    state, _ = step(state, batch)
+    _sync()
+    step_s = _now() - t
+    card_peak = torch.cuda.max_memory_allocated()
+    measured = card_peak - beside
+    del state, batch
+    gap = (predicted - measured) / measured
+    rf = dryrun.roofline(pd)
+    out = {"arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "trace_s": trace_s,
+           "ops": cost.ops, "argument_bytes": pd["argument_bytes"],
+           "temp_bytes": pd["temp_bytes"], "predicted_peak_bytes": predicted,
+           "card_peak_bytes": card_peak, "held_beside_bytes": beside,
+           "measured_peak_bytes": measured, "peak_gap": gap, "argument_bytes_card": args,
+           "flops": pd["flops"], "bytes_accessed": pd["bytes_accessed"],
+           "bytes_min": pd["bytes_min"], "roofline_seconds": rf, "step_s": step_s,
+           "bf16_peak_share": pd["flops"] / step_s / dryrun.PEAK_FLOPS,
+           "seconds": _now() - t0}
+    check(args == pd["argument_bytes"],
+          f"dryrun: arguments {pd['argument_bytes']} predicted, {args} on the card")
+    check(abs(gap) <= DRYRUN_PEAK_RTOL, f"dryrun: the predicted peak is off: {out}")
+    return out
+
+
+def finish_dryruns(runs: dict, peak: dict) -> None:
+    """Waits for `start_dryruns`' cells: each must exit 0 with status ok;
+    prints the `dryrun` line with their per-device figures beside
+    `phase_dryrun`'s."""
+    cells = []
+    for (arch, shape, extra), proc in zip(DRYRUN_CELLS, runs["procs"]):
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        check(proc.returncode == 0, f"dryrun {arch} x {shape} exited {proc.returncode}: "
+              f"{err[-3000:]}")
+        r = json.loads((runs["out"] / f"{arch}__{shape}__16x16.json").read_text())
+        check(r["status"] == "ok", f"dryrun {arch} x {shape}: {r}")
+        cells.append({"arch": arch, "shape": shape, "flags": list(extra), "mesh": r["mesh"],
+                      "per_device": r["per_device"], "collectives": r["collectives"],
+                      "roofline_seconds": r["roofline_seconds"], "trace_s": r["trace_s"]})
+    shutil.rmtree(runs["out"], ignore_errors=True)
+    emit({"phase": "dryrun", "train_step": peak, "cells": cells,
+          "cells_read_after_s": time.perf_counter() - runs["t0"]})
+
+
 def start_train_cli() -> dict:
     """The training command line (TRAIN_CLI, on the card) three ways on a
     thread: uninterrupted, and beside it a run that crashes at step
@@ -3565,25 +3723,30 @@ def finish_sharded_paths(proc) -> tuple[dict, dict]:
 
 
 def lm_paths(dev) -> None:
-    """The LM-side paths: the LM's serving and training command lines
-    (beside them), the weights, phases `train`, `knn_store` (on the trained
-    weights), `lm` (on the random ones), `knn_lm` (trained), `serve_cli`
-    and `train_cli`. `chip_smoke.py --lm-paths` runs them in a process
-    beside the retrieval phases (`start_side`), so their seconds and
-    rates share the card and the host with those."""
+    """The LM-side paths: the LM's serving and training command lines and
+    the dry-run's two production cells (beside them), the weights, phases
+    `train`, `dryrun`'s step (`phase_dryrun`), `knn_store` (on the trained
+    weights), `lm` (on the random ones), `knn_lm` (trained), `serve_cli`,
+    `train_cli` and the dry-run's cells (`finish_dryruns`).
+    `chip_smoke.py --lm-paths` runs them in a process beside the retrieval
+    phases (`start_side`), so their seconds and rates share the card and
+    the host with those."""
+    dryruns = start_dryruns()
     cli = start_lm_cli()
     train_cli = start_train_cli()
     try:
         lm = lm_weights(dev)
         trained = phase_train(lm, dev)
+        peak = phase_dryrun(lm, dev)
         store = phase_knn_store(lm, trained, dev)
         phase_lm(lm, cli, dev)
         phase_knn_lm(lm, trained, store, dev)
         phase_serve_cli()
         phase_train_cli(train_cli)
+        finish_dryruns(dryruns, peak)
     finally:
         train_cli["stop"].set()
-        for proc in (cli, *train_cli["procs"]):
+        for proc in (cli, *train_cli["procs"], *dryruns["procs"]):
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()

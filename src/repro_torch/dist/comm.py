@@ -27,8 +27,10 @@ rank. `all_to_all` inverts itself in the backward.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 _GROUPS: dict = {}
 
@@ -44,16 +46,26 @@ def group(rt, axes: tuple[str, ...]):
         names = list(mesh.mesh_dim_names)
         rest = [i for i, a in enumerate(names) if a not in axes]
         sel = [names.index(a) for a in axes]
-        ranks = mesh.mesh.permute(*rest, *sel).reshape(-1, _prod(mesh, axes))
-        _GROUPS[key], _ = dist.new_subgroups_by_enumeration(ranks.tolist())
+        # the rank grid read with every dispatch mode off and arranged in
+        # numpy: inside the dry-run's cost counter it is no op of the step
+        with _disable_current_modes():
+            grid = mesh.mesh.tolist()
+        ranks = np.array(grid).transpose(*rest, *sel)
+        _GROUPS[key], _ = dist.new_subgroups_by_enumeration(
+            ranks.reshape(-1, _prod(mesh, axes)).tolist())
     return _GROUPS[key]
+
+
+def forget_groups() -> None:
+    """Drop the groups made so far (their process group is gone)."""
+    _GROUPS.clear()
 
 
 def _prod(mesh, axes) -> int:
     names = list(mesh.mesh_dim_names)
     n = 1
     for a in axes:
-        n *= mesh.mesh.shape[names.index(a)]
+        n *= mesh.shape[names.index(a)]
     return n
 
 

@@ -75,7 +75,7 @@ def mesh_shape(mesh) -> dict:
     """{axis name: size} of a DeviceMesh or an AbstractMesh."""
     if isinstance(mesh, AbstractMesh):
         return mesh.shape
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 @dataclass(frozen=True)

@@ -15,6 +15,14 @@ same prompts; only rank 0 prints):
 
   python -m torch.distributed.run --nproc-per-node 2 \
       -m repro_torch.launch.serve --smoke --data 2 --device cpu
+
+So does the retrieval tier: every rank builds (or recovers) the same
+index, places its segment axis over the mesh's data axis
+(`ShardedUHNSW.shard_over`), and serves the same requests, rank 0 running
+the engine and the others following its index calls; rank 0 prints:
+
+  python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.serve --retrieval --data 2 --segments 2 --device cpu
 """
 
 from __future__ import annotations
@@ -76,7 +84,24 @@ def _serve_lm(args, cfg, rt, params, dev, lead: bool) -> int:
 def serve_retrieval(args) -> int:
     """The retrieval tier: a sharded index over the `deep` generator
     (durable under --state-dir), served through the engine; prints what
-    the reference's `serve_retrieval` prints."""
+    the reference's `serve_retrieval` prints. On a mesh of --data x
+    --model ranks the segment axis is placed over it and rank 0 prints."""
+    import torch
+
+    from repro_torch.dist.sharding import process_index
+    from repro_torch.launch.mesh import runtime_from_args
+
+    rt, dev = runtime_from_args(args)
+    try:
+        return _serve_retrieval(args, rt, dev, process_index() == 0)
+    finally:
+        if rt.distributed:
+            torch.distributed.destroy_process_group()
+
+
+def _serve_retrieval(args, rt, dev, lead: bool) -> int:
+    import torch.distributed as dist
+
     from repro_torch.core.datasets import make_dataset
     from repro_torch.core.uhnsw import UHNSWParams
     from repro_torch.index.persist import DurableIndex, latest_durable_snapshot
@@ -100,28 +125,36 @@ def serve_retrieval(args) -> int:
     # screened against the int8 band and only survivors gather f32 rows;
     # results are bitwise-identical, f32-rows tells what the screen saved
     params = UHNSWParams(t=200, compressed_band=args.compressed)
+    say = print if lead else (lambda *a, **k: None)
     if args.state_dir:
         # durable lifecycle: recover an existing state dir (snapshot + WAL
-        # replay, bit-identical) or snapshot a fresh build into it
-        if latest_durable_snapshot(args.state_dir) is not None:
+        # replay, bit-identical) or snapshot a fresh build into it (rank 0
+        # writes; every rank looks before any writes)
+        exists = latest_durable_snapshot(args.state_dir) is not None
+        if rt.distributed:
+            dist.barrier()
+        if exists:
             index = DurableIndex.recover(args.state_dir, params=params,
-                                         device=args.device)
-            print(f"recovered durable index from {args.state_dir}: "
-                  f"n={index.n}, {index.num_segments} segments, "
-                  f"{len(index.delta)} delta-resident inserts")
+                                         device=dev)
+            say(f"recovered durable index from {args.state_dir}: "
+                f"n={index.n}, {index.num_segments} segments, "
+                f"{len(index.delta)} delta-resident inserts")
         else:
             index = DurableIndex.create(
                 ShardedUHNSW.build(ds.data, num_segments=args.segments,
-                                   m=16, params=params, device=args.device),
+                                   m=16, params=params, device=dev),
                 args.state_dir)
-            print(f"created durable index at {args.state_dir}: n={index.n}")
+            say(f"created durable index at {args.state_dir}: n={index.n}")
+        if rt.distributed:
+            index.index.shard_over(rt)
         service = UniversalVectorService(index=index,
                                          fault_injector=injector,
                                          min_coverage=args.min_coverage)
     else:
         service = UniversalVectorService.build(ds.data, params, m=16,
                                                num_segments=args.segments,
-                                               device=args.device,
+                                               device=dev,
+                                               rt=rt if rt.distributed else None,
                                                fault_injector=injector,
                                                min_coverage=args.min_coverage)
     rng = np.random.default_rng(args.seed)
@@ -136,6 +169,8 @@ def serve_retrieval(args) -> int:
     t0 = time.time()
     out = service.serve(reqs)
     dt = time.time() - t0
+    if not lead:
+        return 0
     st = service.stats
     lat = service.latency_summary()
     print(f"served {len(out)} mixed-p requests in {dt:.1f}s "
@@ -257,11 +292,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="where the model or the index lives and runs")
     args = ap.parse_args(argv)
-    if args.retrieval:
-        return serve_retrieval(args)
     from repro_torch.launch.mesh import check_mesh_args
 
     check_mesh_args(ap, args)
+    if args.retrieval:
+        return serve_retrieval(args)
     return serve_lm(args)
 
 

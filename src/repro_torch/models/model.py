@@ -96,9 +96,30 @@ def _rows(rt: Runtime, b: int) -> slice | None:
 
 
 def _local_batch(batch: dict, rt: Runtime) -> dict:
+    """This rank's rows (`_rows`) of each leaf of a global batch. A leaf
+    may be a DTensor placed by the batch's specs (`launch.specs`): with
+    its rows over exactly the dp axes it gives its local shard, which
+    holds those rows; otherwise its whole, sliced alike."""
     b = next(iter(batch.values())).shape[0]
     rows = _rows(rt, b)
-    return batch if rows is None else {k: v[rows] for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        if is_dtensor(v):
+            if rows is not None and _rows_placed(v, rt):
+                out[k] = v.to_local()
+                continue
+            v = full(v)
+        out[k] = v if rows is None else v[rows]
+    return out
+
+
+def _rows_placed(v, rt: Runtime) -> bool:
+    """Whether DTensor v shards dim 0 over rt's dp axes and nothing else."""
+    from torch.distributed.tensor import Shard
+
+    names = v.device_mesh.mesh_dim_names
+    sharded = tuple((a, p.dim) for a, p in zip(names, v.placements) if isinstance(p, Shard))
+    return sharded == tuple((a, 0) for a in rt.dp_axes)
 
 
 def _gather_rows(x: torch.Tensor, rt: Runtime, b: int) -> torch.Tensor:
@@ -236,7 +257,9 @@ def _backbone(params: dict, x, positions, cfg: ArchConfig, rt: Runtime,
 
         for r in range(repeats):
             if rt.remat and not collect_cache:
-                x = checkpoint(lambda h, r=r: unit_body(h, r)[0], x, use_reentrant=False)
+                # bind this segment's body: the recompute runs after the loop
+                x = checkpoint(lambda h, r=r, body=unit_body: body(h, r)[0], x,
+                               use_reentrant=False)
                 continue
             x, unit_entries = unit_body(x, r)
             if not collect_cache:

@@ -44,6 +44,12 @@ is a three-state machine — live → draining (after `close()`) and a
 terminal failed state if the recovery machinery itself breaks — and
 admission into a non-live engine raises `EngineClosed` rather than
 silently queueing.
+
+Over more than one rank (an index placed on a mesh, `shard_over`), rank 0
+drives the engine and sends each index call that can enter a collective
+to the other ranks as an order, which they run on their own placed index
+(`orders`): `serve` on the service and `warmup` here take that path, and
+every rank returns rank 0's result.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ import numpy as np
 
 from repro_torch.core.metrics import base_metric_for
 from repro_torch.index.health import QUARANTINED
+from repro_torch.retrieval.engine import orders as mesh_orders
 from repro_torch.retrieval.engine.faults import (
     SEGMENT_WILDCARD,
     FaultInjector,
@@ -202,6 +209,9 @@ class ServingEngine:
         self._results: dict[int, tuple] = {}
         self._failures: dict[int, str] = {}    # request_id -> error message
         self._seen_shapes: set[tuple] = set()  # cold-program detection
+        # rank 0 over a mesh: sends each collective index call to the other
+        # ranks first (`orders.send`, installed by `orders.lead`)
+        self.orders = None
 
     # -- admission -----------------------------------------------------------
 
@@ -330,7 +340,24 @@ class ServingEngine:
         to compile each program before traffic rides it; in the port, to
         pay the first call's allocations and kernel loads). Served
         counters and latency stats are left untouched (the shapes do land
-        in the cold-detection set). Returns device batches executed."""
+        in the cold-detection set). Returns device batches executed.
+        Over more than one rank every rank calls it: rank 0 warms up and
+        the others run its orders."""
+        return mesh_orders.lead(lambda: self._warmup(k, ps), self.index, self.set_orders)
+
+    def set_orders(self, sender) -> None:
+        self.orders = sender
+
+    def _order(self, *order) -> None:
+        """Send one order to the other ranks (rank 0 over a mesh only)."""
+        if self.orders is not None:
+            self.orders(order)
+
+    def _alive(self) -> list[int] | None:
+        health = getattr(self.index, "health", None)
+        return None if health is None else sorted(health.alive())
+
+    def _warmup(self, k: int, ps: tuple[float, ...]) -> int:
         zero = np.zeros(self.index.dim, np.float32)
         keep_stats, self.stats = self.stats, default_stats()
         keep_results, self._results = self._results, {}
@@ -446,6 +473,7 @@ class ServingEngine:
         q = np.tile(wave.q[bad], (reps, 1))[:self.PROBE_BATCH]
 
         def poisoned(subset: list[int]) -> bool:
+            self._order(mesh_orders.CANDIDATES, q, wave.base, wave.k, subset)
             cands = self.index.search_stage_candidates(
                 q, wave.base, k=wave.k, alive=subset)
             return bool(np.asarray(host(cands.poisoned)).any())
@@ -480,11 +508,13 @@ class ServingEngine:
         st = self.stats
         recovered = 0
         for seg in quarantined:
+            self._order(mesh_orders.RESTORE, seg, directory)
             if not restore_segment(self.index, seg, directory):
                 continue                    # no durable copy of this segment
             health.begin_recovery(seg)
             ok = True
             for i in range(health.policy.probe_successes):
+                self._order(mesh_orders.CANARY, seg, i)
                 ok = self.index.canary_probe(seg, seed=i)
                 if not ok:
                     break
@@ -519,6 +549,7 @@ class ServingEngine:
             # it), and from the *current* one the wave itself is the
             # full-set probe
             wave.health_gen = None if health is None else health.generation
+            self._order(mesh_orders.CANDIDATES, wave.q, wave.base, wave.k, self._alive())
             self.pipeline.dispatch_search(wave)
         except Exception as e:
             self._inflight = prev          # predecessor is untouched

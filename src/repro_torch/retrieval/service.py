@@ -32,9 +32,10 @@ scalar op sequence exactly (repro_torch.core.lp_ops).
 
 The index is a ShardedUHNSW by default, whose delta tier accepts online
 inserts, so the service supports a full read/write mixed-metric workload
-(DESIGN.md §3). Placing its segment axis over a device mesh
-(`ShardedUHNSW.shard_over` in the reference) waits for the mesh's port
-(ROADMAP item 11).
+(DESIGN.md §3). `build(rt=...)` places its segment axis over a mesh
+(`ShardedUHNSW.shard_over`); every rank then calls the same service
+methods, and `serve` runs the engine on rank 0 with the other ranks
+following its index calls (`retrieval.engine.orders`).
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from repro_torch.core.metrics import base_metric_for
 from repro_torch.core.uhnsw import UHNSW, UHNSWParams
 from repro_torch.index.sharded import ShardedUHNSW
 from repro_torch.retrieval.engine import EnginePolicy, ServingEngine, default_stats
+from repro_torch.retrieval.engine import orders
 from repro_torch.retrieval.engine.pipeline import host
 
 
@@ -83,10 +85,6 @@ class InsertRequest:
 
 # one stats schema for both serve paths — see engine.default_stats
 _empty_stats = default_stats
-
-
-ENGINE_MESH_ITEM = ("ROADMAP queue 1 item 11(e) (the engine over more than one rank: rank 0 "
-                    "schedules and broadcasts each wave)")
 
 
 @dataclass
@@ -441,15 +439,20 @@ class UniversalVectorService:
         engine enters its terminal failed state and the error propagates
         with responses already computed as `partial_results`.
 
-        The engine forms its waves by the clock, so ranks of a mesh would
-        form different waves and enter different collectives: over more
-        than one rank it raises (ROADMAP item 11(e): rank 0 schedules and
-        broadcasts each wave)."""
-        rt = getattr(self.index, "_rt", None)
-        if rt is not None and rt.distributed and rt.mesh.size() > 1:
-            raise NotImplementedError(
-                f"serve() over {rt.mesh.size()} ranks: the engine's clock-formed waves would "
-                f"differ per rank; {ENGINE_MESH_ITEM}. Use serve_grouped or serve_v1")
+        Over more than one rank (an index placed on a mesh) every rank
+        calls serve with the same requests. The engine forms its waves by
+        the clock, and each rank has its own, so rank 0 alone runs the
+        engine: its clock, waves, faults, retries, quarantines and
+        recoveries; before each index call that can enter a collective it
+        broadcasts an order that the other ranks run on their own placed
+        index (`retrieval.engine.orders`). At the end rank 0 broadcasts
+        its results, so every rank returns the same dict; the stats and
+        the failures are rank 0's."""
+        eng = self.engine
+        return orders.lead(lambda: self._serve_engine(requests), self.index,
+                           eng.set_orders)
+
+    def _serve_engine(self, requests: list[QueryRequest]) -> dict[int, tuple]:
         eng = self.engine
         out: dict[int, tuple] = {}
         i = 0

@@ -27,7 +27,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import comm
 from repro_torch.dist.sharding import Runtime, full, is_dtensor
-from repro_torch.models.model import loss_fn
+from repro_torch.models.model import _layer, loss_fn
 from repro_torch.optim.adamw import adamw_update, cosine_schedule
 from repro_torch.train.compression import compress_decompress_grads
 from repro_torch.tree import leaves, unflatten
@@ -117,7 +117,7 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, tc: TrainConfig):
         if tc.microbatches > 1:
             g_acc = None
             for i in range(tc.microbatches):
-                g, metrics = compute_grads(fwd, {k: v[i] for k, v in batch.items()})
+                g, metrics = compute_grads(fwd, {k: _layer(v, i) for k, v in batch.items()})
                 if g_acc is None:
                     g_acc = [torch.zeros(b.shape, dtype=torch.float32, device=b.device)
                              for b in leaves(g)]

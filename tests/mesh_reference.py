@@ -5,6 +5,7 @@ Run as a script, in a process of its own, on 8 forced host devices:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       PYTHONPATH=src python tests/mesh_reference.py run INPUTS.npz OUT.npz CKPT_DIR
   ... python tests/mesh_reference.py restore CKPT_DIR OUT.npz
+  ... python tests/mesh_reference.py serve GRAPHS.npz OUT.npz
 
 `run` reads the inputs (tests/mesh_workers.py `write_inputs`: weights,
 activations, initial training states and cotangents, the same for both
@@ -16,7 +17,10 @@ weights-stationary decode MoE at (4, 2), the MoE's gradients at (2, 2)
 and (1, 1), three train steps of tinyllama and deepseek (smoke configs,
 f32 parameters, microbatches 2, int8 compression) at (2, 2), and a
 checkpoint of a placed training state written at (4, 2). `restore` reads
-a checkpoint onto (4, 2) and writes its leaves.
+a checkpoint onto (4, 2) and writes its leaves. `serve` places a sharded
+index over the graphs of tests/mesh_workers.py `write_graphs` on (4, 2)
+(the segment axis over 'data') and writes what its service's `serve`
+returns for the mixed-p requests of tests/mesh_workers.py.
 """
 
 from __future__ import annotations
@@ -162,6 +166,49 @@ def restore(directory: str, path: str) -> None:
     np.savez(path, **out)
 
 
+# tests/mesh_workers.py's index constants and requests
+INDEX_T, INDEX_K = 150, 10
+INDEX_MIXED = np.array([0.5, 0.8, 1.0, 1.25, 1.5, 2.0, 0.6, 1.7] * 3, np.float32)
+
+
+def run_serve(graphs: str, path: str) -> None:
+    from repro.core.build import HNSWGraph
+    from repro.core.uhnsw import UHNSWParams
+    from repro.index import SegmentedGraphs, ShardedParams, ShardedUHNSW
+    from repro.retrieval.engine import ManualClock
+    from repro.retrieval.service import QueryRequest, UniversalVectorService
+
+    npz = np.load(graphs)
+
+    def graph(pre: str) -> HNSWGraph:
+        n_lvl = sum(1 for k in npz.files if k.startswith(f"{pre}/adjacency/"))
+        entry, top, m, m0 = (int(v) for v in npz[f"{pre}/meta"])
+        return HNSWGraph(metric_p=float(npz[f"{pre}/metric_p"]), m=m, m0=m0,
+                         ef_construction=0, entry_point=entry, max_level=top,
+                         adjacency=[npz[f"{pre}/adjacency/{i}"] for i in range(n_lvl)],
+                         level_nodes=[npz[f"{pre}/level_nodes/{i}"] for i in range(n_lvl)],
+                         local_index=[npz[f"{pre}/local_index/{i}"] for i in range(n_lvl)],
+                         data=npz[f"{pre}/data"], levels=npz[f"{pre}/levels"])
+
+    n = int(npz["n_seg"])
+    segs = SegmentedGraphs(graphs1=[graph(f"g1/{s}") for s in range(n)],
+                           graphs2=[graph(f"g2/{s}") for s in range(n)],
+                           global_ids=[np.array(npz[f"ids/{s}"]) for s in range(n)])
+    idx = ShardedUHNSW(segs, np.array(npz["data"]), params=UHNSWParams(t=INDEX_T),
+                       delta_capacity=16,
+                       sharded_params=ShardedParams(policy="two_phase", probe=2))
+    rt = Runtime(mesh=mesh((4, 2)))
+    reqs = [QueryRequest(vector=q, p=float(INDEX_MIXED[i % len(INDEX_MIXED)]), k=INDEX_K,
+                         request_id=i) for i, q in enumerate(np.array(npz["queries"]))]
+    with set_mesh(rt.mesh):
+        idx.shard_over(rt)
+        res = UniversalVectorService(index=idx, clock=ManualClock()).serve(reqs)
+    out = {}
+    for i in sorted(res):
+        out[f"serve/{i}/ids"], out[f"serve/{i}/dists"] = (np.asarray(a) for a in res[i])
+    np.savez(path, **out)
+
+
 def main(argv) -> int:
     if jax.device_count() < 8:
         raise SystemExit("needs 8 devices: set XLA_FLAGS=--xla_force_host_platform_device_count=8")
@@ -176,6 +223,9 @@ def main(argv) -> int:
         return 0
     if argv[0] == "restore":
         restore(argv[1], argv[2])
+        return 0
+    if argv[0] == "serve":
+        run_serve(argv[1], argv[2])
         return 0
     raise SystemExit(f"unknown mode {argv[0]}")
 

@@ -479,12 +479,106 @@ def work_index(rank: int, world: int, store: str, graphs: str, out_dir: str,
                                        device="cpu")
     out["service/placed"] = np.array(svc.index._place is not None)
     service_results(svc, np.array(npz["queries"]), out, "service")
-    try:
-        svc.serve(_requests(np.array(npz["queries"])[:4]))
-        out["serve/refused"] = np.array("")
-    except NotImplementedError as e:
-        out["serve/refused"] = np.array(str(e))
+    mine: dict = {}
+    serve_paths(lambda **kw: make_index(npz, "two_phase").shard_over(rt), npz, mine,
+                os.path.join(snap_dir, "serve"))
+    out.update(mine)
+    # every rank's own serve results, for the every-rank-alike check
+    np.savez(os.path.join(out_dir, f"serve_rank{rank}.npz"),
+             **{k: v for k, v in mine.items() if k.endswith(("/ids", "/dists"))})
     if rank == 0:
         np.savez(os.path.join(out_dir, "rank0.npz"), **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+SERVE_STATS = ("queries", "batches", "faults", "retries", "quarantine_splits", "failed",
+               "poison_detected", "seg_quarantined", "seg_recovered")
+SERVE_FAULTS = {"rate": 0.3, "seed": 3}
+
+
+def _served(res: dict, out: dict, tag: str) -> None:
+    for i in sorted(res):
+        out[f"{tag}/{i}/ids"], out[f"{tag}/{i}/dists"] = (np.asarray(a) for a in res[i])
+
+
+def serve_paths(index_for, npz, out: dict, snap_dir: str) -> None:
+    """`UniversalVectorService.serve` under a ManualClock over indexes made
+    by index_for(): the mixed-p requests clean, under injected transient
+    faults (rank 0's injector), and around a poisoned segment (served at
+    reduced coverage once it is quarantined, then restored from the
+    snapshot and re-admitted by the next serve); with rank 0's stats."""
+    from repro_torch.index.persist import DurableIndex
+    from repro_torch.retrieval.engine import FaultInjector, ManualClock
+    from repro_torch.retrieval.engine.faults import poison_segment
+    from repro_torch.retrieval.service import UniversalVectorService
+
+    reqs = _requests(np.array(npz["queries"]))
+
+    def stats(svc, tag):
+        for name in SERVE_STATS:
+            out[f"{tag}/stats/{name}"] = np.array(svc.stats[name])
+
+    svc = UniversalVectorService(index=index_for(), clock=ManualClock())
+    _served(svc.serve(reqs), out, "serve/clean")
+    stats(svc, "serve/clean")
+    svc = UniversalVectorService(index=index_for(), clock=ManualClock(),
+                                 fault_injector=FaultInjector(**SERVE_FAULTS))
+    _served(svc.serve(reqs), out, "serve/faults")
+    stats(svc, "serve/faults")
+    out["serve/faults/failed_ids"] = np.array(sorted(svc.engine.take_failures()), np.int64)
+    os.makedirs(snap_dir, exist_ok=True)
+    dur = DurableIndex.create(index_for(), snap_dir, sync=False)
+    if dist.is_initialized():
+        dist.barrier()                 # rank 0 wrote the snapshot
+    svc = UniversalVectorService(index=dur, clock=ManualClock())
+    poison_segment(dur, 1)
+    _served(svc.serve(reqs), out, "serve/poisoned")
+    out["serve/poisoned/alive"] = np.array(dur.health.alive())
+    _served(svc.serve(reqs), out, "serve/restored")
+    out["serve/restored/alive"] = np.array(dur.health.alive())
+    stats(svc, "serve/restored")
+
+
+COST_ARCH, COST_B, COST_S, COST_MB = "tinyllama_1_1b", 8, 32, 2
+
+
+def cost_step(rt: Runtime):
+    """(step, state, batch) of the fake-against-real cost check: the smoke
+    tinyllama's train step of COST_MB microbatches, its bf16 state from
+    seed 3 and a token batch from seed 4, placed on rt's mesh as the
+    dry-run's specs place them (`launch.specs`)."""
+    from repro_torch.dist.sharding import place
+    from repro_torch.train.step import init_train_state
+
+    cfg = get_arch(COST_ARCH, smoke=True)
+    tc = TrainConfig(microbatches=COST_MB)
+    state = init_train_state(cfg, rt, tc, torch.Generator().manual_seed(3), device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    shape = (COST_MB, COST_B // COST_MB, COST_S)
+    batch = {k: place(torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                                    dtype=torch.int32), (None, "batch", None), rt)
+             for k in ("labels", "tokens")}
+    return make_train_step(cfg, rt, tc), state, batch
+
+
+def work_cost(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One counted train step (`launch.op_cost.OpCost` on real tensors) on
+    a (2, 2) gloo mesh; rank 0 writes its counts."""
+    import json
+
+    from repro_torch.launch.op_cost import OpCost
+
+    _join(rank, world, store)
+    rt = Runtime(mesh=make_local_mesh(2, 2, device="cpu"), remat=True)
+    step, state, batch = cost_step(rt)
+    cost = OpCost()
+    cost.track(state, batch)
+    with cost:
+        step(state, batch)
+    if rank == 0:
+        with open(os.path.join(out_dir, "cost.json"), "w") as f:
+            json.dump({"flops": cost.flops, "bytes": cost.bytes, "bytes_min": cost.bytes_min,
+                       "collectives": cost.collectives, "ops": cost.ops}, f)
     dist.barrier()
     dist.destroy_process_group()

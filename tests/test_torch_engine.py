@@ -14,6 +14,12 @@ the engine equals `serve_grouped` and `serve_v1` bit for bit. The port
 runs on CPU tensors (its kernels' plain versions).
 """
 
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -434,3 +440,30 @@ def test_serve_cli_creates_then_recovers(tmp_path, capsys):
     with pytest.raises(SystemExit):
         serve_main(["--n", "2000", "--model", "2"])
     assert "start them with python -m torch.distributed.run" in capsys.readouterr().err
+
+
+_FIGURES = re.compile(r"served (\d+) mixed-p requests .* avg N_b=(\d+) \(probe=(\d+) "
+                      r"spill=(\d+)\) N_p=(\d+) dim-scan=([\d.]+) f32-rows=([\d.]+)")
+
+
+def test_serve_cli_retrieval_on_two_ranks(tmp_path):
+    """`--retrieval --data 2` on 2 ranks under torch.distributed.run: each
+    rank builds the same index and places its 2 segments over the mesh,
+    rank 0 runs the engine and alone prints, and the served count and the
+    per-request work (N_b, its split, N_p, dim-scan, f32-rows) equal the
+    one-rank run's."""
+    root = Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("RANK", "WORLD_SIZE"))}
+    env.update(PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    args = ["-m", "repro_torch.launch.serve", "--retrieval", "--n", "2000", "--segments", "2",
+            "--requests", "48", "--device", "cpu"]
+    figures = []
+    for ranks in (1, 2):
+        head = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 f"--nproc-per-node={ranks}"] if ranks > 1 else [sys.executable])
+        proc = subprocess.run([*head, *args, "--data", str(ranks)], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=240)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert proc.stdout.count("served 48 mixed-p requests") == 1, proc.stdout
+        figures.append(_FIGURES.search(proc.stdout).groups())
+    assert figures[0] == figures[1]

@@ -20,10 +20,22 @@ reference's (tests/test_torch_sharded.py's rule: ids up to the order of
 neighbours whose distances agree within rtol 1e-5, atol 1e-6; distances
 within the same) at every p under the independent policy and on the
 mixed batch under the other two; tests/test_torch_sharded.py holds the
-unplaced port to the reference at every case. The clock-driven engine (`serve`) refuses a mesh of more
-than one rank, naming ROADMAP item 11(e).
+unplaced port to the reference at every case.
+
+The clock-driven engine (`UniversalVectorService.serve`) over 2 and 4
+ranks, rank 0 deciding and the others following its index calls
+(`retrieval.engine.orders`), under a ManualClock: every rank returns the
+same results, bit for bit those of the one-rank port's `serve` and of
+`serve_grouped` on the same index, for mixed-p requests; under injected
+transient faults with the one-rank run's retry stats; and around a
+poisoned segment, which is quarantined, restored from the snapshot and
+re-admitted as on one rank. The reference's `serve` on 8 forced host
+devices (tests/mesh_reference.py `serve`, its index placed on (4, 2))
+returns the same ids up to near ties.
 """
 
+import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -40,6 +52,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import mesh_workers as mw  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse fixture)
 
+ROOT = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-5, 1e-6
 RANKS = [2, 4]
 SEARCH_CASES = [(policy, p) for policy in mw.INDEX_POLICIES for p in mw.INDEX_P]
@@ -65,6 +78,14 @@ def results(graphs, segments4, small_ds, tmp_path_factory):
     run while this process computes the other two."""
     from repro_torch.retrieval.service import UniversalVectorService
 
+    ref_out = tmp_path_factory.mktemp("serve_reference") / "serve.npz"
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("RANK", "WORLD_SIZE"))}
+    env.update(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    ref_serve = subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "mesh_reference.py"), "serve", str(graphs),
+         str(ref_out)], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
     runs = {}
     for n in RANKS:
         out = tmp_path_factory.mktemp(f"ranks{n}")
@@ -78,11 +99,26 @@ def results(graphs, segments4, small_ds, tmp_path_factory):
         svc = UniversalVectorService.build(np.array(npz["data"])[:mw.SERVICE_N],
                                            num_segments=4, m=12, method="bulk", device="cpu")
         mw.service_results(svc, np.array(npz["queries"]), unplaced, "service")
+        mw.serve_paths(lambda: mw.make_index(npz, "two_phase"), npz, unplaced,
+                       str(tmp_path_factory.mktemp("snap_serve")))
+        grouped = UniversalVectorService(index=mw.make_index(npz, "two_phase"))
+        mw._served(grouped.serve_grouped(mw._requests(np.array(npz["queries"]))), unplaced,
+                   "grouped")
         reference = _reference_searches(segments4, small_ds)
     finally:
-        for _, ranks in runs.values():
-            ranks.wait()
+        try:
+            _, err = ref_serve.communicate(timeout=170)
+        finally:
+            if ref_serve.poll() is None:
+                ref_serve.kill()
+            for _, ranks in runs.values():
+                ranks.wait()
+    assert ref_serve.returncode == 0, err[-3000:]
+    reference["serve"] = np.load(ref_out)
     placed = {n: np.load(out / "rank0.npz") for n, (out, _) in runs.items()}
+    for n, (out, _) in runs.items():
+        placed[n] = dict(placed[n])
+        placed[n]["every_rank"] = [np.load(out / f"serve_rank{r}.npz") for r in range(n)]
     return placed, unplaced, reference
 
 
@@ -161,10 +197,84 @@ def test_service_build_rt_serves_grouped_as_unplaced(ranks, placed, unplaced):
     _equal(got, unplaced, "service")
 
 
+def _serve_equal(got: dict, want: dict, prefix: str, want_prefix: str | None = None) -> None:
+    """Every request of want's `want_prefix` in got's `prefix`, bit for bit."""
+    want_prefix = want_prefix or prefix
+    keys = sorted(k for k in want if k.startswith(want_prefix + "/")
+                  and k.endswith(("/ids", "/dists")))
+    assert keys, want_prefix
+    for k in keys:
+        np.testing.assert_array_equal(got[prefix + k[len(want_prefix):]], want[k], err_msg=k)
+
+
 @pytest.mark.parametrize("ranks", RANKS)
-def test_engine_serve_refuses_more_than_one_rank(ranks, placed):
-    msg = str(placed[ranks]["serve/refused"])
-    assert "11(e)" in msg and f"over {ranks} ranks" in msg
+def test_engine_serve_refuses_more_than_one_rank(ranks, placed, unplaced):
+    """(The name is the one this check had when serve refused a mesh.)
+    serve over `ranks` gloo ranks: every rank returns the same results,
+    bit for bit the one-rank port's serve and serve_grouped on the same
+    index, and rank 0's stats are the one-rank run's."""
+    got = placed[ranks]
+    for r, mine in enumerate(got["every_rank"]):
+        assert sorted(mine.files) == sorted(k for k in got if k.startswith("serve/")
+                                            and k.endswith(("/ids", "/dists"))), r
+        _serve_equal(mine, got, "serve", "serve")
+    _serve_equal(got, unplaced, "serve/clean")
+    _serve_equal(got, unplaced, "serve/clean", "grouped")
+    for name in mw.SERVE_STATS:
+        assert int(got[f"serve/clean/stats/{name}"]) == int(
+            unplaced[f"serve/clean/stats/{name}"]), name
+
+
+@pytest.mark.parametrize("ranks", RANKS)
+def test_engine_serve_over_ranks_under_faults(ranks, placed, unplaced):
+    """Injected transient faults (rank 0's injector): the same requests
+    served or failed as on one rank, with the same retry stats, and every
+    served result equal to the clean one."""
+    got = placed[ranks]
+    np.testing.assert_array_equal(got["serve/faults/failed_ids"],
+                                  unplaced["serve/faults/failed_ids"])
+    _serve_equal(got, unplaced, "serve/faults")
+    assert int(got["serve/faults/stats/faults"]) > 0
+    for name in mw.SERVE_STATS:
+        assert int(got[f"serve/faults/stats/{name}"]) == int(
+            unplaced[f"serve/faults/stats/{name}"]), name
+    served = [k for k in got if k.startswith("serve/faults/") and k.endswith(("/ids", "/dists"))]
+    for k in served:
+        np.testing.assert_array_equal(got[k], got["serve/clean/" + k[len("serve/faults/"):]])
+
+
+@pytest.mark.parametrize("ranks", RANKS)
+def test_engine_serve_over_ranks_restores_poisoned_segment(ranks, placed, unplaced):
+    """A poisoned segment is quarantined (served at reduced coverage, as on
+    one rank), then restored from the snapshot on every rank and
+    re-admitted: the next serve equals the clean one."""
+    got = placed[ranks]
+    assert got["serve/poisoned/alive"].tolist() == [0, 2, 3]
+    assert got["serve/restored/alive"].tolist() == [0, 1, 2, 3]
+    _serve_equal(got, unplaced, "serve/poisoned")
+    _serve_equal(got, unplaced, "serve/restored")
+    _serve_equal(got, got, "serve/restored", "serve/clean")
+    for name in mw.SERVE_STATS:
+        assert int(got[f"serve/restored/stats/{name}"]) == int(
+            unplaced[f"serve/restored/stats/{name}"]), name
+    assert int(got["serve/restored/stats/seg_quarantined"]) == 1
+    assert int(got["serve/restored/stats/seg_recovered"]) == 1
+
+
+def test_engine_serve_matches_reference(results):
+    """The port's serve over 4 ranks against the reference's serve on 8
+    forced host devices: ids equal up to near ties, distances within
+    tolerance."""
+    placed, _, reference = results
+    got, want = placed[4], reference["serve"]
+    keys = sorted(k[len("serve/"):-len("/ids")] for k in want.files if k.endswith("/ids"))
+    assert keys
+    for i in keys:
+        d = want[f"serve/{i}/dists"]
+        _assert_ids_match([got[f"serve/clean/{i}/ids"]], [want[f"serve/{i}/ids"]], [d], i)
+        fin = np.isfinite(d)
+        np.testing.assert_allclose(got[f"serve/clean/{i}/dists"][fin], d[fin], rtol=RTOL,
+                                   atol=ATOL)
 
 
 def _assert_ids_match(got_ids, want_ids, want_d, err=""):

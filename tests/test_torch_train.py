@@ -219,6 +219,29 @@ def test_remat_gives_the_same_grads():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("arch,n_layers", [("deepseek_v3_671b", None),
+                                            ("recurrentgemma_2b", 4)])
+def test_remat_gives_the_same_grads_over_segments(arch, n_layers):
+    """An arch whose layer plan has two segments (deepseek's dense layer
+    then its MoE layers; recurrentgemma's 3-block unit then one rglru
+    layer): each layer's recompute runs its own segment's body. (It once
+    ran the last segment's, whose closure the loop had rebound.)"""
+    from repro_torch.models.params import layer_plan
+
+    cfg = get_arch(arch, smoke=True)
+    if n_layers is not None:
+        cfg = cfg.with_overrides(n_layers=n_layers)
+    assert len(layer_plan(cfg)) == 2
+    params = model.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    batch = SyntheticTokenPipeline(cfg, 2, 32, seed=1, device="cpu").batch(0)
+    plain, m_plain = make_train_step(cfg, RT, TrainConfig()).compute_grads(params, batch)
+    remat, m_remat = make_train_step(cfg, Runtime(remat=True), TrainConfig()).compute_grads(
+        params, batch)
+    assert torch.equal(m_plain["loss"], m_remat["loss"])
+    for a, b in zip(leaves(plain), leaves(remat)):
+        assert torch.equal(a, b)
+
+
 def test_chunked_xent_masks_padding_and_padded_vocab():
     cfg = get_arch("tinyllama_1_1b", smoke=True).with_overrides(vocab_size=5)
     rng = np.random.default_rng(0)
