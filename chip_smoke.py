@@ -3269,6 +3269,19 @@ MESH_TRAIN = (8, 512, 3, 2)   # batch, seq, steps, microbatches: tinyllama_1_1b 
 MESH_STEP_RTOL = 1e-6      # losses and grad norms (read: bit for bit)
 MESH_TP_TOL = 1e-6
 MESH_SERVE = (8, 128, 32)  # bf16 ServeEngine: batch, prompt, steps
+# the sharded layouts on a (1, 2) mesh: two processes on the one card over
+# gloo (NCCL refuses two ranks on one device; gloo carries every collective
+# these layouts use on CUDA tensors, staged through the host), against the
+# mesh-free path at tinyllama_1_1b's full width, f32
+SPLIT_TRAIN_RTOL = 1e-4    # losses and grad norms: f32 sums over 'model' in another
+#                            order, and the int8 compression's rounding can move an
+#                            element of a gradient by one step
+SPLIT_DECODE = (4, 32, 64, 128)   # batch, prefill, decode steps, cache slots: the rank
+#                                   boundary at slot 64 is crossed at step 32
+SPLIT_LOGP_TOL = 1e-3      # the decode's log-probs against the full forward (f32)
+SPLIT_LAYERS = 4           # depth cut to 4 of 22 (full width): gloo stages every
+#                            collective through the host, ~1 s a decode step at 22
+SPLIT_TIMEOUT = 420
 MESH_CKPT_LAYERS = 1       # the checkpoint's cut: the parameters of the embedding, head,
 #                            final norm and layer 0 (with the moments, 2.10 GB, the
 #                            part took 47.69 s of its 40)
@@ -3607,7 +3620,8 @@ def mesh_tinyllama(mesh, dev) -> dict:
                 max(abs(a - c) / abs(c) for a, c in zip(nm, nf)))
     out["train"] = {"batch": b, "seq": s, "steps": steps, "microbatches": mb,
                     "grad_compression": True, "dtype": "float32", "losses": lm_,
-                    "grad_norms": nm, "mesh_free_losses": lf, "max_rel_diff": worst,
+                    "grad_norms": nm, "mesh_free_losses": lf, "mesh_free_grad_norms": nf,
+                    "max_rel_diff": worst,
                     "bit_equal": bitwise, "step_s_mesh": secs_m, "step_s_free": secs_f}
     check(worst <= MESH_STEP_RTOL, f"mesh: train steps {out['train']}")
     del runs, sf, params
@@ -3654,12 +3668,238 @@ def mesh_tinyllama(mesh, dev) -> dict:
     return out
 
 
+def mesh_split_rank(rank: int, world: int, store: str, out: str, free: dict) -> None:
+    """One of the two ranks of the (1, 2) gloo mesh on the one card
+    (`start_mesh_split`): tinyllama_1_1b at full width (SPLIT_LAYERS
+    deep) with its weights placed by their specs (heads, f columns and
+    vocabulary split over 'model'), MESH_TRAIN's f32 steps against the
+    mesh-free run's (`free`, `split_baseline`), a prefill and
+    SPLIT_DECODE's decode steps across the ranks' slot boundary against
+    the full forward, ServeEngine's f32 tokens against the mesh-free
+    engine's (both rank 0's), and every local shape of the weights, the
+    gradients and the caches against its spec's window.
+    Rank 0 writes the results to `out`."""
+    from datetime import timedelta
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=timedelta(seconds=300))
+    try:
+        res = _split_paths(torch.device("cuda", 0), free)
+        if rank == 0:
+            Path(out).write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _split_paths(dev, free: dict) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.dist.sharding import (
+        Runtime,
+        distribute_params,
+        local,
+        logical_to_spec,
+        window,
+    )
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model
+    from repro_torch.models.params import _map_specs, param_specs
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.compression import compression_init
+    from repro_torch.train.step import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(1, 2, device=str(dev))
+    rt, free_rt = Runtime(mesh=mesh), Runtime()
+    cfg = get_arch(LM_ARCH).with_overrides(n_layers=SPLIT_LAYERS)
+    specs = _map_specs(lambda s: s, param_specs(cfg))
+    out = {"backend": dist.get_backend(), "mesh": [1, 2], "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "vocab": cfg.vocab_size, "start_s": time.perf_counter() - t0}
+
+    def windows(tree, spec_tree) -> bool:
+        return all(tuple(local(t).shape) == tuple(
+            w.stop - w.start for w in window(s.shape, logical_to_spec(s.logical, s.shape, rt),
+                                             rt))
+            for t, s in zip(leaves(tree), leaves(spec_tree), strict=True))
+
+    def weights(dtype):
+        p = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype=dtype,
+                              device=dev)
+        return p, distribute_params(p, specs, rt)
+
+    # training: MESH_TRAIN's steps from mesh_tinyllama's initial state
+    t = _now()
+    b, s, steps, mb = MESH_TRAIN
+    tc = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=steps + 1, microbatches=mb,
+                     grad_compression=True)
+    whole, placed = weights(torch.float32)
+    del whole
+    pipe = SyntheticTokenPipeline(cfg, b, s, seed=0, device=dev)
+    state = {"params": placed, "opt": adamw_init(placed), "err": compression_init(placed)}
+    step_fn = make_train_step(cfg, rt, tc)
+    grads, _ = step_fn.compute_grads(placed, {k: v[0] for k, v in
+                                              _split(pipe.batch(0), mb).items()})
+    grad_shapes_ok = windows(grads, specs)
+    del grads
+    losses, norms, secs = [], [], []
+    for i in range(steps):
+        ts = _now()
+        state, m = step_fn(state, _split(pipe.batch(i), mb))
+        secs.append(_now() - ts)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    worst = max(max(abs(a - c) / abs(c) for a, c in zip(losses, free["losses"])),
+                max(abs(a - c) / abs(c) for a, c in zip(norms, free["grad_norms"])))
+    out["train"] = {"batch": b, "seq": s, "steps": steps, "microbatches": mb,
+                    "grad_compression": True, "losses": losses, "grad_norms": norms,
+                    "mesh_free_losses": free["losses"], "mesh_free_grad_norms":
+                    free["grad_norms"], "max_rel_diff": worst, "step_s": secs,
+                    "mesh_free_step_s": free["step_s"],
+                    "param_shapes_equal_spec": windows(state["params"], specs),
+                    "moment_shapes_equal_spec": windows(state["opt"]["m"], specs),
+                    "grad_shapes_equal_spec": grad_shapes_ok, "seconds": _now() - t}
+    del state, placed
+    torch.cuda.empty_cache()
+
+    # prefill + decode across the slot boundary, against the full forward
+    t = _now()
+    db, s0, n_dec, s_max = SPLIT_DECODE
+    whole, placed = weights(torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(db, s_max)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        last, cache = model.prefill(placed, {"tokens": toks[:, :s0]}, cfg, rt, s_max=s_max)
+        cache_ok = windows(cache, model.cache_specs(cfg, db, s_max))
+        got = [model.head_logits(placed, last, cfg, rt)]
+        for pos in range(s0, s0 + n_dec):
+            lg, cache = model.decode_step(placed, toks[:, pos:pos + 1], cache, pos, cfg, rt)
+            got.append(lg)
+        got = torch.cat(got, dim=1)[..., :cfg.vocab_size].float()
+        want = model.head_logits(whole, model.forward_train(whole, {"tokens": toks}, cfg,
+                                                            free_rt), cfg, free_rt)
+        want = want[:, s0 - 1:s0 + n_dec, :cfg.vocab_size].float()
+        err = float((torch.log_softmax(got, -1) - torch.log_softmax(want, -1)).abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    out["decode"] = {"batch": db, "prefill": s0, "steps": n_dec, "cache_slots": s_max,
+                     "boundary_slot": s_max // 2, "logp_max_err": err, "argmax_agreement": agree,
+                     "cache_shapes_equal_spec": cache_ok,
+                     "cache_local_bytes": sum(local(c).numel() * local(c).element_size()
+                                              for c in leaves(cache)),
+                     "seconds": _now() - t}
+    del cache
+
+    # serving: f32 weights placed on the mesh against the same whole (rank 0)
+    t = _now()
+    sb, sp, sn = MESH_SERVE
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(sb, sp)).astype(np.int32)
+    ts = _now()
+    served = ServeEngine(cfg, rt, placed, max_seq=sp + sn).generate(prompts, sn)
+    mesh_s = _now() - ts
+    ts = _now()
+    free_tok = ServeEngine(cfg, free_rt, whole, max_seq=sp + sn).generate(prompts, sn)
+    out["serve"] = {"batch": sb, "prompt": sp, "steps": sn, "dtype": "float32",
+                    "tokens_equal": bool(np.array_equal(served, free_tok)),
+                    "agreement": float((served == free_tok).mean()),
+                    "sample": served[0, :16].tolist(), "generate_s_mesh": mesh_s,
+                    "generate_s_free": _now() - ts, "seconds": _now() - t}
+    out["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def split_baseline(dev) -> dict:
+    """The mesh-free f32 train steps of `mesh_split_rank`'s model and
+    batches (MESH_TRAIN), run in this process before the ranks start."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.compression import compression_init
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    cfg = get_arch(LM_ARCH).with_overrides(n_layers=SPLIT_LAYERS)
+    b, s, steps, mb = MESH_TRAIN
+    tc = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=steps + 1, microbatches=mb,
+                     grad_compression=True)
+    p = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          dtype=torch.float32, device=dev)
+    state = {"params": p, "opt": adamw_init(p), "err": compression_init(p)}
+    pipe = SyntheticTokenPipeline(cfg, b, s, seed=0, device=dev)
+    step_fn = make_train_step(cfg, Runtime(), tc)
+    losses, norms, secs = [], [], []
+    for i in range(steps):
+        t = _now()
+        state, m = step_fn(state, _split(pipe.batch(i), mb))
+        secs.append(_now() - t)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    del state, p
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": norms, "step_s": secs}
+
+
+def start_mesh_split(free: dict):
+    """Starts the (1, 2) gloo mesh's two processes on the one card
+    (`mesh_split_rank`) and returns what `finish_mesh_split` waits for."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_split_"))
+    ctx = mp.start_processes(mesh_split_rank,
+                             args=(2, str(tmp / "store"), str(tmp / "split.json"), free),
+                             nprocs=2, join=False, start_method="spawn")
+    return ctx, tmp, time.perf_counter()
+
+
+def finish_mesh_split(job) -> dict:
+    """Waits for the (1, 2) ranks and checks their results."""
+    ctx, tmp, t = job
+    deadline = t + SPLIT_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(deadline - time.perf_counter(), 0.1)):
+            check(time.perf_counter() < deadline, "mesh: the (1, 2) ranks timed out")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    out = json.loads((tmp / "split.json").read_text())
+    shutil.rmtree(tmp)
+    out["wall_s"] = time.perf_counter() - t
+    tr, dec, srv = out["train"], out["decode"], out["serve"]
+    check(tr["max_rel_diff"] <= SPLIT_TRAIN_RTOL, f"mesh (1, 2): train steps {tr}")
+    check(tr["param_shapes_equal_spec"] and tr["moment_shapes_equal_spec"]
+          and tr["grad_shapes_equal_spec"], f"mesh (1, 2): local shapes {tr}")
+    check(dec["logp_max_err"] <= SPLIT_LOGP_TOL and dec["argmax_agreement"] >= KINDS_TF_MIN_AGREE
+          and dec["cache_shapes_equal_spec"], f"mesh (1, 2): decode {dec}")
+    check(srv["tokens_equal"], f"mesh (1, 2): served tokens differ: {srv}")
+    return out
+
+
 def lm_kinds(dev) -> None:
     """The other block kinds' paths (`kinds_model`), deepseek first while
     nothing large is on the card, then the mesh's LM part (`mesh_moe` on
     the MoE configs' layers while they are on the card, `mesh_tinyllama`
     last, once they have left it) on a one-rank NCCL group's (1, 1) mesh,
-    made here first. `chip_smoke.py --lm-kinds` runs them in a process of
+    made here first, and the (1, 2) gloo mesh's two processes
+    (`start_mesh_split`), started once deepseek has left the card and
+    read before `mesh_tinyllama`. `chip_smoke.py --lm-kinds` runs them in a process of
     their own, started at the smoke's start (no kernel); the LM paths'
     process starts only once it has exited."""
     import torch.distributed as dist
@@ -3669,19 +3909,31 @@ def lm_kinds(dev) -> None:
     t = _now()
     mesh = make_local_mesh(1, 1, device="cuda")
     group_s = _now() - t
+    split = None
     try:
         moe = {}
         for arch in KINDS_TF:
             got = kinds_model(arch, dev, mesh)
             if got is not None:
                 moe[arch] = got
+            if split is None:
+                # once deepseek (the first, 67 GB) has left the card, the
+                # (1, 2) ranks (~10 GB) run beside the other kinds (26 GB
+                # at most); mesh_tinyllama's 51 GB waits for them, since
+                # the first process's kernel phases (~18 GB) run beside it
+                split = start_mesh_split(split_baseline(dev))
+        split = finish_mesh_split(split)
         t = _now()
         lm = mesh_tinyllama(mesh, dev)
         emit({"phase": "mesh_lm", "backend": dist.get_backend(), "mesh": [1, 1],
               "axis_names": list(mesh.mesh_dim_names), "group_start_s": group_s,
-              "moe": moe, "tinyllama": lm,
+              "moe": moe, "tinyllama": lm, "split": split,
               "seconds": group_s + sum(m["seconds"] for m in moe.values()) + _now() - t})
     finally:
+        if isinstance(split, tuple):
+            for p in split[0].processes:
+                if p.is_alive():
+                    p.kill()
         dist.destroy_process_group()
 
 
@@ -3812,6 +4064,12 @@ def emit_mesh(lm: dict, index: dict) -> None:
                         "serve_tokens_equal": tl["serve"]["tokens_equal"],
                         "checkpoint_bitwise": tl["checkpoint"]["mesh_to_none_bitwise"]
                         and tl["checkpoint"]["none_to_mesh_bitwise"]},
+          "split_1x2": {"backend": lm["split"]["backend"],
+                        "train_max_rel_diff": lm["split"]["train"]["max_rel_diff"],
+                        "decode_logp_max_err": lm["split"]["decode"]["logp_max_err"],
+                        "serve_tokens_equal": lm["split"]["serve"]["tokens_equal"],
+                        "shapes_equal_spec": lm["split"]["train"]["param_shapes_equal_spec"]
+                        and lm["split"]["decode"]["cache_shapes_equal_spec"]},
           "shard_over_equal": index["equal"], "shard_over_launches": index["launches"],
           "seconds": {"lm_kinds_process": lm["seconds"], "sharded_process": index["seconds"]}})
 

@@ -22,7 +22,16 @@ split bodies:
 `gather_grad` (all-gather forward, reduce-scatter backward) and
 `sum_grad` (sum both ways) serve the weights-stationary decode MoE, whose
 gathered tokens and dp-summed products feed computations that differ per
-rank. `all_to_all` inverts itself in the backward.
+rank, and the SSD's gated norm, whose sum of squares spans the 'model'
+ranks' heads. `all_to_all` inverts itself in the backward.
+
+A weight is gathered at its use (`gather_at_use`, called by
+`dist.sharding.at_use` and `full`) over one mesh dim's group: the
+backward either reduce-scatters the cotangent back to this rank's shard
+(the ranks along that dim computed on different rows, or on different
+parts of a split body, so their cotangents are partial sums), or keeps
+this rank's slice of it (the ranks computed alike: every one holds the
+whole cotangent already).
 """
 
 from __future__ import annotations
@@ -91,7 +100,10 @@ def _gather(x: torch.Tensor, g, dim: int) -> torch.Tensor:
 
 def reduce_scatter(x: torch.Tensor, rt, axes: tuple[str, ...], dim: int) -> torch.Tensor:
     """The sum over the group, of which this rank keeps its 1/n of dim."""
-    g = group(rt, axes)
+    return _reduce_scatter(x, group(rt, axes), dim)
+
+
+def _reduce_scatter(x: torch.Tensor, g, dim: int) -> torch.Tensor:
     n = dist.get_world_size(g)
     xm = x.movedim(dim, 0).contiguous()
     out = torch.empty((xm.shape[0] // n, *xm.shape[1:]), dtype=x.dtype, device=x.device)
@@ -150,6 +162,24 @@ class _GatherGrad(torch.autograd.Function):
         return reduce_scatter(g, ctx.rt, ctx.axes, ctx.dim), None, None, None
 
 
+class _GatherAtUse(torch.autograd.Function):
+    """All-gather along dim over group g; the backward reduce-scatters the
+    cotangent (summed) or keeps this rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, x, g, dim, summed):
+        ctx.g, ctx.dim, ctx.summed = g, dim, summed
+        return _gather(x, g, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g, dim = ctx.g, ctx.dim
+        if ctx.summed:
+            return _reduce_scatter(grad, g, dim), None, None, None
+        n = grad.shape[dim] // dist.get_world_size(g)
+        return grad.narrow(dim, dist.get_rank(g) * n, n), None, None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, rt, axes):
@@ -196,6 +226,11 @@ def sum_grad(x, rt, axes):
 
 def gather_grad(x, rt, axes, dim: int):
     return _GatherGrad.apply(x, rt, tuple(axes), dim)
+
+
+def gather_at_use(x, g, dim: int, summed: bool):
+    """x's pieces over group g concatenated along dim (`_GatherAtUse`)."""
+    return _GatherAtUse.apply(x, g, dim, summed)
 
 
 def all_to_all(x, rt, axes):

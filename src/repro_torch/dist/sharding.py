@@ -22,9 +22,15 @@ meshes' specs. `mesh=None` is one card with no process group.
 Storage and compute: `distribute_params` places a tree of full tensors as
 DTensors by `logical_to_spec` (`placements`). Compute never runs on DTensors
 (the flash attention's chunk loops, the stable sorts and the MoE's
-`index_add_` have no sharding rules): a model call takes each rank's local
-shard (`local`) or gathers the full tensor at use (`full`), and
-the collectives are explicit (`repro_torch.dist.comm`).
+`index_add_` have no sharding rules): a model call takes each weight at
+its use (`at_use`): gathered over the dp axes it is sharded on, and over
+'model' either kept as this rank's shard (a body split over 'model':
+heads, channels, f columns, vocabulary columns) or gathered whole (a
+body every 'model' rank computes alike). Both are autograd ops whose
+backward returns the gradient of this rank's shard (`comm.gather_at_use`),
+so a gradient taken through them never exists whole. `full` is the
+whole tensor, with no gradient; the collectives are explicit
+(`repro_torch.dist.comm`).
 """
 
 from __future__ import annotations
@@ -333,12 +339,84 @@ def local(x):
 
 def full(x):
     """The full tensor of a DTensor, gathered over every mesh dim it is
-    sharded on (ZeRO-3's gather at use); a plain tensor as it is."""
+    sharded on; a plain tensor as it is. No gradient crosses it: a model's
+    weights are taken by `at_use`."""
     if not is_dtensor(x):
         return x
     from repro_torch.dist.comm import gather_shards
 
     return gather_shards(x.to_local(), x.placements, x.device_mesh)
+
+
+def tp_split(rt: Runtime | None, n: int) -> bool:
+    """Whether a body of n heads (channels, columns) splits over 'model':
+    a mesh with ranks, more than one 'model' rank, and n divisible by
+    them (the reference's fallback replicates otherwise)."""
+    return (rt is not None and rt.distributed and rt.tp_size > 1
+            and n % rt.tp_size == 0)
+
+
+def _model_axis(rt: Runtime | None) -> str | None:
+    """The mesh axis of split bodies: 'model' when it has more than one
+    rank (under full_dp it is a dp axis like the others)."""
+    if rt is None or not rt.distributed or rt.tp_size == 1:
+        return None
+    return rt.tp_axis
+
+
+def at_use(x, rt: Runtime | None, keep: int | None = None, split: bool = False):
+    """Weight x at its use, with gradients that come back as this rank's
+    shard.
+
+    A DTensor is gathered over each dp mesh dim it is sharded on (the
+    backward reduce-scatters: the dp ranks computed on different rows).
+    Over 'model' (more than one rank): `keep` names the dim of which this
+    rank uses its window (a DTensor sharded so gives its shard as it is;
+    any other tensor is narrowed, after a gather over 'model' if it is
+    sharded on another dim); `split` says that the body consuming x is
+    split over 'model', so that each rank's cotangent is a partial sum:
+    a gather over 'model' reduce-scatters it back, and a tensor held
+    whole on every 'model' rank enters through `comm.copy_to` (summed in
+    the backward). Without `split` the 'model' ranks computed alike, and
+    the gather's backward keeps this rank's slice. Off a mesh, or with
+    one 'model' rank, a plain tensor comes back as it is."""
+    from repro_torch.dist import comm
+
+    tp = _model_axis(rt)
+    kept = False
+    if is_dtensor(x):
+        from torch.distributed.tensor import Shard
+
+        mesh = x.device_mesh
+        names = mesh.mesh_dim_names
+        y = x.to_local()
+        for i in reversed(range(len(names))):
+            p = x.placements[i]
+            if not isinstance(p, Shard):
+                continue
+            if names[i] == tp:
+                if keep == p.dim:
+                    kept = True
+                    continue
+                y = comm.gather_at_use(y, mesh.get_group(names[i]), p.dim, summed=split)
+                continue
+            y = comm.gather_at_use(y, mesh.get_group(names[i]), p.dim, summed=True)
+        if kept or tp is None:
+            return y
+        if not split or any(isinstance(p, Shard) and n == tp
+                            for n, p in zip(names, x.placements)):
+            return y if keep is None else _narrow_model(y, rt, keep)
+        x = y
+    if tp is None:
+        return x
+    if split:
+        x = comm.copy_to(x, rt, (tp,))
+    return x if keep is None else _narrow_model(x, rt, keep)
+
+
+def _narrow_model(x, rt: Runtime, dim: int):
+    n = x.shape[dim] // rt.tp_size
+    return x.narrow(dim, rt.tp_rank * n, n)
 
 
 def process_index() -> int:

@@ -181,6 +181,7 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
         "collectives": cost.collectives,
         "roofline_seconds": roofline(per_device),
         "ops": cost.ops,
+        "fallbacks": spec_fallbacks(cfg, shape, rt),
     }
     if verbose:
         pd, rf = per_device, result["roofline_seconds"]
@@ -191,6 +192,26 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
               f"roofline c/m/x = {rf['compute']:.3g}/{rf['memory']:.3g}/"
               f"{rf['collective']:.3g}s (trace {seconds:.0f}s)", flush=True)
     return result
+
+
+def spec_fallbacks(cfg, shape: ShapeConfig, rt) -> list:
+    """The (logical axis, dim, axis size) of every dim of the cell's
+    parameters (and decode caches) that its mesh axes do not divide, so
+    that it stays whole (the reference's second fallback): a body whose
+    heads, channels or columns fall back runs replicated over 'model'.
+    Each triple once, in the specs' order."""
+    from repro_torch.dist.sharding import logical_to_spec
+    from repro_torch.models.model import cache_specs
+    from repro_torch.models.params import _map_specs, param_specs
+    from repro_torch.tree import leaves
+
+    specs = leaves(_map_specs(lambda s: s, param_specs(cfg)))
+    if shape.kind == "decode":
+        specs += leaves(cache_specs(cfg, shape.global_batch, shape.seq_len))
+    found: list = []
+    for s in specs:
+        logical_to_spec(s.logical, s.shape, rt, found)
+    return [list(f) for f in dict.fromkeys(found)]
 
 
 def optimized_settings(arch_id: str, shape_name: str) -> dict:

@@ -11,9 +11,9 @@ than `FakeTensorMode` tensors: ops on them dispatch as on real tensors
 `launch.op_cost` can answer repeated ops from a metadata cache, which
 makes a 32k-token prefill's trace about five times quicker.
 
-`decode_specs` describes the port's own cache placement
-(`models.model._place_cache`): batch over dp, cache_seq and inner
-replicated, where the reference's specs shard those two over 'model'.
+`decode_specs` places the caches by their own specs (`cache_specs`'
+logical axes: batch over dp, cache_seq and inner over 'model'), as
+`models.model._place_cache` and the reference's `init_cache` place them.
 Its position is a Python int, as `models.model.decode_step` takes it:
 the last slot of the cache (the decode attends every slot whatever it is).
 """
@@ -33,7 +33,7 @@ from repro_torch.dist.sharding import (
     spec_axes,
 )
 from repro_torch.models.model import cache_specs
-from repro_torch.models.params import ParamSpec, _map_specs
+from repro_torch.models.params import _map_specs
 
 
 def _sds(shape, dtype, rt: Runtime, logical):
@@ -83,16 +83,11 @@ def batch_specs(cfg: ArchConfig, shape: ShapeConfig, rt: Runtime, microbatches: 
 
 def decode_specs(cfg: ArchConfig, shape: ShapeConfig, rt: Runtime):
     """(tokens, cache, pos) for `decode_step`: tokens (B, 1) over dp, the
-    cache tree of `cache_specs` placed as `_place_cache` places it, and
-    pos = seq_len - 1."""
+    cache tree of `cache_specs` placed by its specs, and pos = seq_len - 1."""
     gb, s = shape.global_batch, shape.seq_len
     tokens = _sds((gb, 1), torch.int32, rt, ("batch", None))
-
-    def mk(spec: ParamSpec):
-        logical = ("layers", "batch") + (None,) * (len(spec.shape) - 2)
-        return _sds(spec.shape, spec.dtype, rt, logical)
-
-    cache = _map_specs(mk, cache_specs(cfg, gb, s))
+    cache = _map_specs(lambda spec: _sds(spec.shape, spec.dtype, rt, spec.logical),
+                       cache_specs(cfg, gb, s))
     return tokens, cache, s - 1
 
 

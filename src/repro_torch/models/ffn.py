@@ -19,9 +19,14 @@ top-1 routing every weight is exactly 1.0) go to the lowest token index, as
 top-k over experts is chosen the same way. `moe_dropped` gives the dropped
 (token, expert) routes of the same selection.
 
-Weights come as full tensors (off a mesh, and training's gathered copy)
-or as DTensors (`dist.sharding.distribute_params`), whose shards each path
-takes as it needs them (`dist.sharding.full`, `dist.tp.model_slice`).
+The dense FFN and the shared experts split over 'ff' on a mesh whose
+'model' ranks divide it (`dist.tp`'s column and row products: this rank's
+f columns, the down product summed over 'model'), as GSPMD splits them
+under the reference's specs.
+
+Weights come as full tensors (off a mesh) or as DTensors
+(`dist.sharding.distribute_params`), whose shards each path takes as it
+needs them (`dist.sharding.at_use`, `full`, `dist.tp.model_slice`).
 Gradients cross the collectives by `dist.comm`'s rules.
 """
 
@@ -32,7 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import comm
-from repro_torch.dist.sharding import P, full, is_dtensor, placements, window
+from repro_torch.dist.sharding import P, at_use, full, is_dtensor, placements, tp_split, window
 from repro_torch.dist.tp import col_matmul_ffn, model_slice, row_matmul_ffn
 from repro_torch.models.attention import rmsnorm
 
@@ -49,33 +54,39 @@ def _act(cfg: ArchConfig, gate_or_pre: torch.Tensor, pre: torch.Tensor | None = 
     raise ValueError(cfg.ffn_act)
 
 
-def ffn_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, rt=None) -> torch.Tensor:
-    """Pre-norm dense FFN: rmsnorm, up (and gate) projection, activation,
-    down projection. Under rt.explicit_tp on a mesh the products are
-    `dist.tp`'s, on this rank's f columns (reference `ffn.py:48`)."""
-    h = rmsnorm(x, full(params["ln"]), cfg.norm_eps)
-    if rt is None or not rt.explicit_tp:
-        pre = torch.einsum("bsd,df->bsf", h, full(params["wi"]))
+def _dense(params: dict, h: torch.Tensor, cfg: ArchConfig, rt, keys: tuple) -> torch.Tensor:
+    """The up (and gate) projection, activation and down projection of the
+    normed input h, under keys (up, gate, down). On a mesh whose 'model'
+    ranks divide f (and under rt.explicit_tp) the products are
+    `dist.tp`'s, on this rank's f columns; otherwise the plain products
+    on the whole weights, gathered at use."""
+    up, gate, down = keys
+    f = params[up].shape[-1]
+    if rt is not None and rt.distributed and (rt.explicit_tp or tp_split(rt, f)):
+        pre = col_matmul_ffn(h, params[up], rt)
         if cfg.ffn_act == "swiglu":
-            act = _act(cfg, torch.einsum("bsd,df->bsf", h, full(params["wg"])), pre)
+            act = _act(cfg, col_matmul_ffn(h, params[gate], rt), pre)
         else:
             act = _act(cfg, pre)
-        return torch.einsum("bsf,fd->bsd", act, full(params["wo"]))
-    pre = col_matmul_ffn(h, params["wi"], rt)
+        return row_matmul_ffn(act, params[down], rt)
+    pre = torch.einsum("bsd,df->bsf", h, at_use(params[up], rt))
     if cfg.ffn_act == "swiglu":
-        act = _act(cfg, col_matmul_ffn(h, params["wg"], rt), pre)
+        act = _act(cfg, torch.einsum("bsd,df->bsf", h, at_use(params[gate], rt)), pre)
     else:
         act = _act(cfg, pre)
-    return row_matmul_ffn(act, params["wo"], rt)
+    return torch.einsum("bsf,fd->bsd", act, at_use(params[down], rt))
 
 
-def _shared_expert(params: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    pre = torch.einsum("bsd,df->bsf", h, full(params["ws_in"]))
-    if cfg.ffn_act == "swiglu":
-        act = _act(cfg, torch.einsum("bsd,df->bsf", h, full(params["ws_gate"])), pre)
-    else:
-        act = _act(cfg, pre)
-    return torch.einsum("bsf,fd->bsd", act, full(params["ws_out"]))
+def ffn_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, rt=None) -> torch.Tensor:
+    """Pre-norm dense FFN: rmsnorm, up (and gate) projection, activation,
+    down projection; split over 'ff' on a mesh (`_dense`; reference
+    `ffn.py:48`)."""
+    h = rmsnorm(x, at_use(params["ln"], rt), cfg.norm_eps)
+    return _dense(params, h, cfg, rt, ("wi", "wg", "wo"))
+
+
+def _shared_expert(params: dict, h: torch.Tensor, cfg: ArchConfig, rt=None) -> torch.Tensor:
+    return _dense(params, h, cfg, rt, ("ws_in", "ws_gate", "ws_out"))
 
 
 def _capacity(t: int, cfg: ArchConfig) -> int:
@@ -169,7 +180,7 @@ def _expert_block(w, rt, spec: P) -> torch.Tensor:
     (`full`) and sliced, as a view of a full tensor."""
     if is_dtensor(w) and tuple(w.placements) == placements(spec, rt.mesh):
         return w.to_local()
-    w = full(w)
+    w = at_use(w, rt)
     return w[window(tuple(w.shape), spec, rt)]
 
 
@@ -192,7 +203,7 @@ def _moe_mesh(params: dict, h: torch.Tensor, cfg: ArchConfig, rt) -> torch.Tenso
     tp = (rt.tp_axis,)
     split = not rt.full_dp
     xt = h.reshape(t, d)
-    router = full(params["router"])
+    router = at_use(params["router"], rt)
     if split:
         xt, router = comm.copy_to(xt, rt, tp), comm.copy_to(router, rt, tp)
     e_loc = _e_loc(cfg, rt)
@@ -228,7 +239,7 @@ def _moe_decode_gather(params: dict, h: torch.Tensor, cfg: ArchConfig, rt) -> to
     xt = x.reshape(t, d)
     e_loc = _e_loc(cfg, rt)
     lo = rt.tp_rank * e_loc
-    router = comm.copy_to(full(params["router"]), rt, tp)
+    router = comm.copy_to(at_use(params["router"], rt), rt, tp)
     gate = _route(router, xt, cfg)[:, lo:lo + e_loc]
     cap = min(t, max(16, int(t * m.top_k / m.num_experts * max(m.capacity_factor, 2.0)) + 8))
     top_gate, top_idx = _select(gate, cap)
@@ -257,7 +268,7 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, rt=None) -> torc
     rt.moe_decode_gather, a decode step (S == 1) and dp_size > 1,
     `_moe_decode_gather` (reference :169)."""
     m = cfg.moe
-    h = rmsnorm(x, full(params["ln"]), cfg.norm_eps)
+    h = rmsnorm(x, at_use(params["ln"], rt), cfg.norm_eps)
     if rt is None or not rt.distributed:
         out = _moe_local(params, h, cfg)
     elif rt.moe_decode_gather and h.shape[1] == 1 and rt.dp_size > 1:
@@ -265,5 +276,5 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, rt=None) -> torc
     else:
         out = _moe_mesh(params, h, cfg, rt)
     if m.n_shared:
-        out = out + _shared_expert(params, h, cfg)
+        out = out + _shared_expert(params, h, cfg, rt)
     return out

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.sharding import Runtime
-from repro_torch.models.model import _head_matrix, decode_step, prefill
+from repro_torch.models.model import decode_step, head_logits, prefill
 
 
 @dataclass
@@ -47,8 +47,7 @@ class ServeEngine:
             tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32, device=dev)
             last_hidden, cache = prefill(self.params, {"tokens": tokens}, self.cfg, self.rt,
                                          s_max=self.max_seq)
-            logits = torch.einsum("bsd,dv->bsv", last_hidden,
-                                  _head_matrix(self.params, self.cfg))
+            logits = head_logits(self.params, last_hidden, self.cfg, self.rt)
             tok = self._sample(logits[:, -1, :], temperature, gen)
             out = [tok]
             for pos in range(s0, s0 + steps - 1):

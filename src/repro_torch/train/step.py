@@ -7,15 +7,20 @@ moments in place, so the state is held once.
 
 On a mesh the state's leaves are DTensors placed by `logical_to_spec`
 (`init_train_state`, `dist.sharding.distribute_params`), and every rank
-is given the same global batch. A (micro)batch's gradient is taken on the
-full weights, gathered at use (ZeRO-3: each microbatch gathers them again,
-or once a step under weights_once, the reference's `_pregather`), on this
-rank's dp rows of the microbatch (`models.model._rows`: the reference's
-`_constrain_mb`, dp on the rows of each (microbatches, gb / mb) slice).
-The accumulated full gradients are then summed over dp
-(`_reduce_grads`): a reduce-scatter back to the shards of the leaves
-sharded over dp, an all-reduce for the rest; each rank keeps its window
-of the dims sharded over 'model', whose ranks computed alike.
+is given the same global batch. A (micro)batch's gradient is taken with
+respect to each rank's shards, on this rank's dp rows of the microbatch
+(`models.model._rows`: the reference's `_constrain_mb`, dp on the rows
+of each (microbatches, gb / mb) slice). Each weight is gathered inside
+the layer that uses it (`dist.sharding.at_use`: over dp, and over
+'model' only where the body that consumes it is not split there; under
+remat the recompute gathers again), and the gather's backward
+reduce-scatters the gradient back to this rank's shard: no weight and no
+gradient exists whole, beyond one layer's weights at a time. The
+microbatches accumulate the shards in f32, and `_reduce_grads` adds the
+all-reduce for the leaves replicated over dp. Under weights_once the
+weights are gathered over dp once a step, outside the microbatch loop
+(the reference's `_pregather`; the 'model' shards stay), and the
+accumulated gradients are reduce-scattered over dp at the end.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import comm
-from repro_torch.dist.sharding import Runtime, full, is_dtensor
+from repro_torch.dist.sharding import Runtime, is_dtensor, local
 from repro_torch.models.model import _layer, loss_fn
 from repro_torch.optim.adamw import adamw_update, cosine_schedule
 from repro_torch.train.compression import compress_decompress_grads
@@ -50,36 +55,69 @@ class TrainConfig:
     b2: float = 0.95
 
 
-def _reduce_grads(grads: list, params: list, rt: Runtime) -> list:
-    """Full per-rank gradients -> each parameter's shard of their sum over
-    dp, as DTensors placed like the parameters."""
+def _reduce_grads(grads: list, params: list, rt: Runtime, used: list | None = None) -> list:
+    """Each leaf's gradient of this rank's shard -> its sum over dp, as
+    DTensors placed like the parameters.
+
+    The gathers at use (`dist.sharding.at_use`) already reduce-scatter
+    over the dp axes a leaf is sharded on, so what is left is the
+    all-reduce over the dp axes it is replicated on (each dp rank's rows
+    gave a part). used: the placements the gradients were taken against,
+    where they differ from the parameters' (weights_once's copy gathered
+    over dp): a dp axis the parameter is sharded on and the copy was not
+    is reduce-scattered here."""
     from torch.distributed.tensor import DTensor, Shard
 
-    from repro_torch.dist.sharding import mesh_names, window
+    from repro_torch.dist.sharding import mesh_names
 
     names = mesh_names(rt.mesh)
     dp = set(rt.dp_axes)
     out = []
-    for g, p in zip(grads, params):
+    for i, (g, p) in enumerate(zip(grads, params)):
         pl = p.placements
+        upl = pl if used is None else used[i]
         rep = tuple(a for a, q in zip(names, pl) if a in dp and not isinstance(q, Shard))
         if rep:
             g = comm.all_reduce(g, rt, rep)
         by_dim: dict[int, list[str]] = {}
-        for a, q in zip(names, pl):
-            if isinstance(q, Shard) and a in dp:
+        for a, q, u in zip(names, pl, upl):
+            if isinstance(q, Shard) and a in dp and not isinstance(u, Shard):
                 by_dim.setdefault(q.dim, []).append(a)
         for dim, axes in by_dim.items():
             g = comm.reduce_scatter(g, rt, tuple(axes), dim)
-        # the 'model' shards (outside dp) are this rank's window, no sum
-        spec = [None] * g.dim()
-        for a, q in zip(names, pl):
-            if isinstance(q, Shard) and a not in dp:
-                spec[q.dim] = a
-        g = g[window(tuple(g.shape), tuple(spec), rt)]
         out.append(DTensor.from_local(g.contiguous(), p.device_mesh, pl, run_check=False,
                                       shape=p.shape, stride=p.stride()))
     return out
+
+
+def _placed(local_tensor: torch.Tensor, like, placements=None):
+    """local_tensor as a DTensor placed like `like` (or by `placements`),
+    differentiable to the local tensor; a plain tensor as it is."""
+    if not is_dtensor(like):
+        return local_tensor
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local_tensor, like.device_mesh, placements or like.placements,
+                              run_check=False, shape=like.shape, stride=like.stride())
+
+
+def _gathered_over_dp(p, rt: Runtime):
+    """(this rank's shard of p gathered over the dp axes it is sharded on,
+    its placements: Replicate on those axes): weights_once's copy, which
+    keeps the 'model' shards."""
+    if not is_dtensor(p):
+        return p, None
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = p.device_mesh.mesh_dim_names
+    dp = set(rt.dp_axes)
+    y = p.to_local()
+    pl = list(p.placements)
+    for i in reversed(range(len(names))):
+        if names[i] in dp and isinstance(pl[i], Shard):
+            y = comm.all_gather(y, rt, (names[i],), pl[i].dim)
+            pl[i] = Replicate()
+    return _placed(y, p, tuple(pl)), tuple(pl)
 
 
 def make_train_step(cfg: ArchConfig, rt: Runtime, tc: TrainConfig):
@@ -93,15 +131,17 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, tc: TrainConfig):
 
     `train_step.compute_grads(params, batch)` -> (grads, metrics) is the
     step's gradient of one (micro)batch: a tree of params' structure at the
-    parameters' dtypes (on a mesh, this rank's full gradient before the sum
-    over dp)."""
+    parameters' dtypes (on a mesh, the gradient of this rank's shard of
+    each leaf: summed over the dp axes the leaf is sharded on, not yet
+    over those it is replicated on)."""
     schedule = cosine_schedule(tc.lr, tc.warmup_steps, tc.total_steps)
 
     def compute_grads(params, batch):
         p_l = leaves(params)
-        live = [full(p).detach().requires_grad_() for p in p_l]
+        live = [local(p).detach().requires_grad_() for p in p_l]
         with torch.enable_grad():
-            loss, metrics = loss_fn(unflatten(params, live), batch, cfg, rt)
+            placed = [_placed(x, p) for x, p in zip(live, p_l)]
+            loss, metrics = loss_fn(unflatten(params, placed), batch, cfg, rt)
             grads = torch.autograd.grad(loss, live, allow_unused=True)
         # a leaf the loss does not reach (a frontend arch's embedding) gets
         # zeros, as jax.grad gives it
@@ -111,9 +151,10 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, tc: TrainConfig):
     def train_step(state, batch):
         params = state["params"]
         sharded = any(is_dtensor(p) for p in leaves(params))
-        fwd = params
+        fwd, used = params, None
         if sharded and tc.weights_once:
-            fwd = unflatten(params, [full(p) for p in leaves(params)])
+            pairs = [_gathered_over_dp(p, rt) for p in leaves(params)]
+            fwd, used = unflatten(params, [a for a, _ in pairs]), [b for _, b in pairs]
         if tc.microbatches > 1:
             g_acc = None
             for i in range(tc.microbatches):
@@ -131,7 +172,7 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, tc: TrainConfig):
             grads = leaves(grads)
         del fwd
         if sharded:
-            grads = _reduce_grads(grads, leaves(params), rt)
+            grads = _reduce_grads(grads, leaves(params), rt, used)
         grads = unflatten(params, grads)
 
         if tc.grad_compression:

@@ -6,6 +6,7 @@ Run as a script, in a process of its own, on 8 forced host devices:
       PYTHONPATH=src python tests/mesh_reference.py run INPUTS.npz OUT.npz CKPT_DIR
   ... python tests/mesh_reference.py restore CKPT_DIR OUT.npz
   ... python tests/mesh_reference.py serve GRAPHS.npz OUT.npz
+  ... python tests/mesh_reference.py layouts INPUTS.npz OUT.npz
 
 `run` reads the inputs (tests/mesh_workers.py `write_inputs`: weights,
 activations, initial training states and cotangents, the same for both
@@ -20,7 +21,10 @@ checkpoint of a placed training state written at (4, 2). `restore` reads
 a checkpoint onto (4, 2) and writes its leaves. `serve` places a sharded
 index over the graphs of tests/mesh_workers.py `write_graphs` on (4, 2)
 (the segment axis over 'data') and writes what its service's `serve`
-returns for the mixed-p requests of tests/mesh_workers.py.
+returns for the mixed-p requests of tests/mesh_workers.py. `layouts`
+(tests/test_torch_layouts.py) reads tests/mesh_workers.py
+`write_layout_inputs`' cases and writes, on (4, 2), each one's loss, every
+leaf's gradient and its full forward's logits over the decode tokens.
 """
 
 from __future__ import annotations
@@ -209,6 +213,52 @@ def run_serve(graphs: str, path: str) -> None:
     np.savez(path, **out)
 
 
+# tests/mesh_workers.py's layout cases
+LAYOUT_CASES = {
+    "gqa": ("tinyllama_1_1b", {}),
+    "tied": ("tinyllama_1_1b", {"tie_embeddings": True}),
+    "rglru_local": ("recurrentgemma_2b", {}),
+    "mla_moe": ("deepseek_v3_671b", {"capacity": "free"}),
+    "gqa_moe": ("llama4_scout_17b_a16e", {"capacity": "free"}),
+    "ssd": ("mamba2_1_3b", {}),
+}
+
+
+def layout_cfg(case: str):
+    arch, over = LAYOUT_CASES[case]
+    over = dict(over)
+    cfg = get_arch(arch, smoke=True)
+    if over.pop("capacity", None):
+        over["moe"] = replace(cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
+    return cfg.with_overrides(**over)
+
+
+def run_layouts(inputs: str, path: str) -> None:
+    from repro.models import model as rmodel
+
+    inp = np.load(inputs)
+    m = mesh((4, 2))
+    rt = Runtime(mesh=m)
+    out = {}
+    for case in LAYOUT_CASES:
+        cfg = layout_cfg(case)
+        specs = rparams.param_specs(cfg)
+        batch = {k: jnp.asarray(inp[f"{case}/{k}"]) for k in ("tokens", "labels")}
+        with set_mesh(m):
+            params = jax.device_put(tree_of(inp, f"{case}/params", specs),
+                                    spec_shardings(specs, rt))
+            (loss, _), grads = jax.jit(jax.value_and_grad(
+                lambda p, b, cfg=cfg: rmodel.loss_fn(p, b, cfg, rt), has_aux=True))(params, batch)
+            logits = jax.jit(lambda p, t, cfg=cfg: jnp.einsum(
+                "bsd,dv->bsv", rmodel.forward_train(p, {"tokens": t}, cfg, rt),
+                rmodel._head_matrix(p, cfg)))(params, jnp.asarray(inp[f"{case}/dec_tokens"]))
+        out[f"{case}/loss"] = np.asarray(loss)
+        for i, g in enumerate(jax.tree.leaves(grads)):
+            out[f"{case}/grad/{i}"] = np.asarray(g)
+        out[f"{case}/logits"] = np.asarray(logits)
+    np.savez(path, **out)
+
+
 def main(argv) -> int:
     if jax.device_count() < 8:
         raise SystemExit("needs 8 devices: set XLA_FLAGS=--xla_force_host_platform_device_count=8")
@@ -226,6 +276,9 @@ def main(argv) -> int:
         return 0
     if argv[0] == "serve":
         run_serve(argv[1], argv[2])
+        return 0
+    if argv[0] == "layouts":
+        run_layouts(argv[1], argv[2])
         return 0
     raise SystemExit(f"unknown mode {argv[0]}")
 

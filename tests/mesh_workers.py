@@ -163,10 +163,43 @@ def _grads(fn, params: dict, x: torch.Tensor, ct: torch.Tensor, rt: Runtime | No
         gx, *gp = torch.autograd.grad((out * ct).sum(), [xs, *live.values()])
     if rt is None:
         return gx, dict(zip(live, gp))
-    from repro_torch.train.step import _reduce_grads
-
-    gp = [full(g) for g in _reduce_grads(gp, [placed[k] for k in live], rt)]
+    gp = [full(g) for g in reduce_full_grads(gp, [placed[k] for k in live], rt)]
     return _gather(gx, rt), dict(zip(live, gp))
+
+
+def reduce_full_grads(grads: list, params: list, rt: Runtime) -> list:
+    """Whole per-rank gradients (of weights passed whole) -> each
+    parameter's shard of their sum over dp, as DTensors placed like the
+    parameters: a reduce-scatter back to the shards of the leaves sharded
+    over dp, an all-reduce for the rest; each rank keeps its window of
+    the dims sharded over 'model'."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.dist import comm
+    from repro_torch.dist.sharding import mesh_names, window
+
+    names = mesh_names(rt.mesh)
+    dp = set(rt.dp_axes)
+    out = []
+    for g, p in zip(grads, params):
+        pl = p.placements
+        rep = tuple(a for a, q in zip(names, pl) if a in dp and not isinstance(q, Shard))
+        if rep:
+            g = comm.all_reduce(g, rt, rep)
+        by_dim: dict[int, list[str]] = {}
+        for a, q in zip(names, pl):
+            if isinstance(q, Shard) and a in dp:
+                by_dim.setdefault(q.dim, []).append(a)
+        for dim, axes in by_dim.items():
+            g = comm.reduce_scatter(g, rt, tuple(axes), dim)
+        spec = [None] * g.dim()
+        for a, q in zip(names, pl):
+            if isinstance(q, Shard) and a not in dp:
+                spec[q.dim] = a
+        g = g[window(tuple(g.shape), tuple(spec), rt)]
+        out.append(DTensor.from_local(g.contiguous(), p.device_mesh, pl, run_check=False,
+                                      shape=p.shape, stride=p.stride()))
+    return out
 
 
 def _save_grads(out: dict, tag: str, gx, gp: dict) -> None:
@@ -580,5 +613,156 @@ def work_cost(rank: int, world: int, store: str, out_dir: str) -> None:
         with open(os.path.join(out_dir, "cost.json"), "w") as f:
             json.dump({"flops": cost.flops, "bytes": cost.bytes, "bytes_min": cost.bytes_min,
                        "collectives": cost.collectives, "ops": cost.ops}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the sharded layouts (tests/test_torch_layouts.py)
+# ---------------------------------------------------------------------------
+
+# case -> (arch, overrides): every mixer kind, the MoE at a drop-free
+# capacity (E / top_k: every mesh computes the same function), the tied
+# and the untied heads, and deepseek's MTP head
+LAYOUT_CASES = {
+    "gqa": ("tinyllama_1_1b", {}),
+    "tied": ("tinyllama_1_1b", {"tie_embeddings": True}),
+    "rglru_local": ("recurrentgemma_2b", {}),
+    "mla_moe": ("deepseek_v3_671b", {"capacity": "free"}),
+    "gqa_moe": ("llama4_scout_17b_a16e", {"capacity": "free"}),
+    "ssd": ("mamba2_1_3b", {}),
+}
+LAYOUT_MESHES = ((1, 2), (2, 2), (4, 2))
+LAYOUT_B, LAYOUT_S = 4, 64          # the loss's batch
+# prefill DEC_S0 tokens into caches of DEC_SMAX slots, then decode to
+# DEC_END: the full caches' rank boundary is slot 24, the local-attention
+# ring's (32 slots) slot 16, and the ring wraps at 32
+DEC_S0, DEC_SMAX, DEC_END, DEC_FWD = 12, 48, 40, 48
+
+
+def layout_cfg(case: str, get=get_arch):
+    arch, over = LAYOUT_CASES[case]
+    over = dict(over)
+    cfg = get(arch, smoke=True)
+    if over.pop("capacity", None):
+        m = cfg.moe
+        over["moe"] = replace(m, capacity_factor=m.num_experts / m.top_k)
+    return cfg.with_overrides(**over)
+
+
+def write_layout_inputs(path: str) -> None:
+    """Each case's f32 parameters (init_params' rules, seed 11), its loss
+    batch (tokens, labels with padding) and its decode tokens."""
+    from repro_torch.models.model import init_params
+
+    out: dict = {}
+    for i, case in enumerate(LAYOUT_CASES):
+        cfg = layout_cfg(case)
+        _flat(out, f"{case}/params", init_params(cfg, torch.Generator().manual_seed(11 + i),
+                                                 dtype=torch.float32, device="cpu"))
+        rng = np.random.default_rng(20 + i)
+        toks = rng.integers(0, cfg.vocab_size, size=(LAYOUT_B, LAYOUT_S + 1)).astype(np.int32)
+        labels = toks[:, 1:].copy()
+        labels[0, -7:] = -1
+        out[f"{case}/tokens"], out[f"{case}/labels"] = toks[:, :-1], labels
+        out[f"{case}/dec_tokens"] = rng.integers(0, cfg.vocab_size,
+                                                 size=(LAYOUT_B, DEC_FWD)).astype(np.int32)
+    np.savez(path, **out)
+
+
+def layout_run(cfg, params, inp, case: str, rt: Runtime, out: dict, shapes: dict) -> None:
+    """One case on rt: the loss and every leaf's gradient (the train step's
+    `compute_grads`, summed over dp by `_reduce_grads`, gathered whole for
+    the comparison), the prefill's logits and the decode's across the
+    ranks' slot boundary; the local shapes of the weights, the gradients
+    and the caches in `shapes`. Off a mesh the same calls (the baseline)."""
+    from repro_torch.models.model import decode_step, head_logits, prefill
+    from repro_torch.train.step import _reduce_grads
+
+    batch = {"tokens": torch.from_numpy(np.array(inp[f"{case}/tokens"])),
+             "labels": torch.from_numpy(np.array(inp[f"{case}/labels"]))}
+    grads, metrics = make_train_step(cfg, rt, TrainConfig()).compute_grads(params, batch)
+    grads = leaves(grads)
+    if rt.distributed:
+        shapes[f"{case}/param"] = [list(p.to_local().shape) for p in leaves(params)]
+        grads = _reduce_grads(grads, leaves(params), rt)
+        shapes[f"{case}/grad"] = [list(g.to_local().shape) for g in grads]
+    out[f"{case}/loss"] = np.array(float(metrics["loss"]))
+    for i, g in enumerate(grads):
+        out[f"{case}/grad/{i}"] = full(g).numpy()
+    toks = torch.from_numpy(np.array(inp[f"{case}/dec_tokens"]))
+    with torch.no_grad():
+        last, cache = prefill(params, {"tokens": toks[:, :DEC_S0]}, cfg, rt, s_max=DEC_SMAX)
+        if rt.distributed:
+            shapes[f"{case}/cache"] = [list(t.to_local().shape) for t in leaves(cache)]
+        logits = [head_logits(params, last, cfg, rt)]
+        for pos in range(DEC_S0, DEC_END):
+            lg, cache = decode_step(params, toks[:, pos:pos + 1], cache, pos, cfg, rt)
+            logits.append(lg)
+    out[f"{case}/decode"] = torch.cat(logits, dim=1).numpy()
+
+
+def layout_extras(cfg, params, inp, rt: Runtime, out: dict) -> None:
+    """The gqa case again under remat (each layer's gathers recomputed in
+    the backward) and two train steps of 2 microbatches with and without
+    weights_once (one gather a step)."""
+    from repro_torch.optim.adamw import adamw_init
+
+    batch = {"tokens": torch.from_numpy(np.array(inp["gqa/tokens"])),
+             "labels": torch.from_numpy(np.array(inp["gqa/labels"]))}
+    rtr = replace(rt, remat=True)
+    grads, m = make_train_step(cfg, rtr, TrainConfig()).compute_grads(params, batch)
+    from repro_torch.train.step import _reduce_grads
+
+    grads = leaves(grads)
+    if rt.distributed:
+        grads = _reduce_grads(grads, leaves(params), rt)
+    out["remat/loss"] = np.array(float(m["loss"]))
+    for i, g in enumerate(grads):
+        out[f"remat/grad/{i}"] = full(g).numpy()
+    for once in (False, True):
+        tc = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=4, microbatches=2,
+                         weights_once=once)
+        p = unflatten(params, [x.clone() if not hasattr(x, "to_local") else
+                               _clone_placed(x) for x in leaves(params)])
+        state = {"params": p, "opt": adamw_init(p)}
+        step = make_train_step(cfg, rt, tc)
+        losses, norms = [], []
+        for _ in range(2):
+            state, mm = step(state, _split(batch, 2))
+            losses.append(float(mm["loss"]))
+            norms.append(float(mm["grad_norm"]))
+        out[f"once{int(once)}/loss"], out[f"once{int(once)}/gnorm"] = losses, norms
+
+
+def _clone_placed(x):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x.to_local().clone(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape, stride=x.stride())
+
+
+def work_layouts(rank: int, world: int, store: str, inputs: str, out_dir: str,
+                 shape: tuple) -> None:
+    """Every layout case on a `shape` mesh of gloo ranks (rank 0 writes the
+    results, every rank its local shapes)."""
+    import json
+
+    _join(rank, world, store)
+    inp = np.load(inputs)
+    rt = Runtime(mesh=make_local_mesh(*shape, device="cpu"))
+    out: dict = {}
+    shapes: dict = {}
+    for case in LAYOUT_CASES:
+        cfg = layout_cfg(case)
+        specs = _map_specs(lambda s: s, param_specs(cfg))
+        params = distribute_params(_tree(inp, f"{case}/params", specs), specs, rt)
+        layout_run(cfg, params, inp, case, rt, out, shapes)
+        if case == "gqa":
+            layout_extras(cfg, params, inp, rt, out)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "rank0.npz"), **out)
+    with open(os.path.join(out_dir, f"shapes{rank}.json"), "w") as f:
+        json.dump(shapes, f)
     dist.barrier()
     dist.destroy_process_group()

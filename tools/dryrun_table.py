@@ -1,8 +1,8 @@
 """Markdown tables of a dry-run sweep: one row per cell of the JSON files
 that `python -m repro_torch.launch.dryrun --out DIR` wrote, and for each
-decode cell the per-device bytes of its caches as the port places them
-(batch over dp; cache_seq and inner replicated) against the reference's
-spec (cache_seq and inner over 'model' too).
+decode cell the per-device bytes of its caches under their specs (batch
+over dp, cache_seq and inner over 'model': where the port places them,
+`launch.specs.decode_specs`, and the reference's spec alike).
 
   PYTHONPATH=src python tools/dryrun_table.py DIR [--mesh 16x16]
 
@@ -23,8 +23,8 @@ KINDS = (("all-gather", "AG"), ("all-reduce", "AR"), ("reduce-scatter", "RS"),
          ("all-to-all", "A2A"), ("collective-permute", "CP"))
 
 
-def cache_bytes(arch: str, shape_name: str, multi_pod: bool) -> tuple[int, int]:
-    """(the port's, the reference spec's) cache bytes per device."""
+def cache_bytes(arch: str, shape_name: str, multi_pod: bool) -> int:
+    """The cell's cache bytes per device under their specs."""
     from repro_torch.configs.base import SHAPES, get_arch
     from repro_torch.dist.sharding import Runtime, logical_to_spec, mesh_shape, spec_axes
     from repro_torch.launch.dryrun import optimized_settings
@@ -39,17 +39,25 @@ def cache_bytes(arch: str, shape_name: str, multi_pod: bool) -> tuple[int, int]:
                     if k in ("moe_decode_gather", "full_dp")})
     sizes = mesh_shape(rt.mesh)
 
-    def local(spec, logical) -> int:
-        p = logical_to_spec(logical, spec.shape, rt)
+    def local(spec) -> int:
+        p = logical_to_spec(spec.logical, spec.shape, rt)
         n = math.prod(d // math.prod(sizes[a] for a in spec_axes(e))
                       for d, e in zip(spec.shape, p))
         return n * spec.dtype.itemsize
 
-    specs = leaves(_map_specs(lambda s: s, cache_specs(cfg, shape.global_batch,
-                                                       shape.seq_len)))
-    port = sum(local(s, ("layers", "batch") + (None,) * (len(s.shape) - 2)) for s in specs)
-    ref = sum(local(s, s.logical) for s in specs)
-    return port, ref
+    return sum(local(s) for s in leaves(_map_specs(lambda s: s, cache_specs(
+        cfg, shape.global_batch, shape.seq_len))))
+
+
+def fallbacks(arch: str, multi_pod: bool) -> list:
+    """The dims the decode cell's specs leave whole (`dryrun.spec_fallbacks`)."""
+    from repro_torch.configs.base import SHAPES, get_arch
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.launch.dryrun import spec_fallbacks
+    from repro_torch.launch.mesh import make_production_mesh
+
+    rt = Runtime(mesh=make_production_mesh(multi_pod=multi_pod))
+    return [tuple(f) for f in spec_fallbacks(get_arch(arch), SHAPES["decode_32k"], rt)]
 
 
 def _settings(c: dict) -> str:
@@ -70,9 +78,13 @@ def main(argv=None) -> int:
     cells = [c for c in cells if c.get("mesh") == args.mesh]
     ok = [c for c in cells if c["status"] == "ok"]
     gib, mib = 2**30, 2**20
+
+    def fb(arch):
+        return fallbacks(arch, args.mesh != "16x16")
+
     print("| cell | settings | args / temp GiB | fits 80 GB | flops | "
           + " / ".join(short for _, short in KINDS[:4]) + " MiB | roofline c / m / x s | "
-          "trace s | caches, port / reference spec GiB |")
+          "trace s | caches GiB |")
     print("|" + " --- |" * 9)
     for c in ok:
         pd, rf = c["per_device"], c["roofline_seconds"]
@@ -81,14 +93,15 @@ def main(argv=None) -> int:
         assert coll[4] == 0.0, c["collectives"]          # no collective-permute on this path
         caches = "—"
         if c["shape"] in ("decode_32k", "long_500k"):
-            port, ref = cache_bytes(c["arch"], c["shape"], args.mesh != "16x16")
-            caches = f"{port / gib:.2f} / {ref / gib:.2f}"
+            caches = f"{cache_bytes(c['arch'], c['shape'], args.mesh != '16x16') / gib:.2f}"
         print(f"| {c['arch']} x {c['shape']} | {_settings(c)} | "
               f"{pd['argument_bytes'] / gib:.2f} / {pd['temp_bytes'] / gib:.2f} | "
               f"{'yes' if peak <= HBM_BYTES else 'no'} | {pd['flops']:.3g} | "
               + " / ".join(f"{x:.0f}" for x in coll[:4])
               + f" | {rf['compute']:.3g} / {rf['memory']:.3g} / {rf['collective']:.3g} | "
               f"{c['trace_s']} | {caches} |")
+    print("\nfallbacks (logical axis, dim, axis size) of the decode cells' specs: "
+          + "; ".join(f"{a}: {fb(a)}" for a in sorted({c['arch'] for c in ok}) if fb(a)))
     bad = [c for c in cells if c["status"] == "error"]
     skipped = [c for c in cells if c["status"] == "skipped"]
     print(f"\n{len(ok)} ok, {len(skipped)} skipped, {len(bad)} errors; "
